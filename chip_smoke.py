@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from stellar_core_tpu_torch/csrc (nvcc, at
 first use), holds each one against its plain PyTorch version on the card,
 checks the adversarial verdicts, then drives the batch verifier's two main
-paths at the repo's realistic sizes:
+paths and the quorum-intersection checker at the repo's realistic sizes:
 
 * hot keys (bench.py config #2): 65,536 signatures over 64 keys, 120-byte
   messages, chunk 16384, hot_threshold 4 -- key tables built by K-B, verified
@@ -14,8 +14,15 @@ paths at the repo's realistic sizes:
 * cold keys (the catchup replay default, hot_threshold 1 << 62): 65,536
   signatures over 4,096 keys, chunk 8192 -- verified by K-G;
 
-with every 100th signature's R corrupted (655 bad, 64,881 accepted).  Each
-phase prints one JSON line; then the card's name and power limit as
+with every 100th signature's R corrupted (655 bad, 64,881 accepted); and
+
+* the quorum-intersection check of bench.py config 5's largest map, asym7
+  (27 validators in 7 organisations, 9,215,488 minimal-quorum hits),
+  through kernels K-QF and K-QC; a splitting tier-1-width map (7 orgs x 3
+  validators, 3-of-7) whose split must be the JAX package's; and asym5
+  with capacity buckets (8, 16), which forces the host-chunked depths.
+
+Each phase prints one JSON line; then the card's name and power limit as
 nvidia-smi gives them, the kernels line, and last
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 not 0 and the last line is not printed.  Without CUDA it exits 2.
@@ -38,8 +45,11 @@ import numpy as np
 import torch
 
 from stellar_core_tpu_torch import _cuda_build
-from stellar_core_tpu_torch.accel import curve, ed25519, field, tables
+from stellar_core_tpu_torch import testutils as qmaps
+from stellar_core_tpu_torch.accel import curve, ed25519, field, quorum, tables
 from stellar_core_tpu_torch.crypto import sodium
+from stellar_core_tpu_torch.herder.quorum_intersection import (
+    QuorumIntersectionChecker)
 
 P = field.P
 L = ed25519.L
@@ -54,6 +64,26 @@ IMAD_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 # 32x32->64 products in one fe_mul / fe_sq of csrc/fe25519.cuh
 MUL_IMADS, SQ_IMADS = 100, 55
+# H100 SXM __popc rate: 16 results per clock per SM at compute capability
+# 9.0 (CUDA C++ Programming Guide, "Arithmetic Instructions" throughput
+# table, row "population count"), x 132 SMs x 1.98 GHz
+POPC_PER_S = 132 * 16 * 1.98e9
+
+# The JAX package's results, fixed here so the checks stand on the card:
+# asym7 from QuorumIntersectionChecker(asym_org_qmap(7))._check_native() of
+# stellar_core_tpu.herder.quorum_intersection (its native C engine; 136 s
+# on a CPU); asym5 and the split map from its TPUQuorumIntersectionChecker
+# (tests/test_torch_chip_smoke.py checks both against the JAX package).
+ASYM7_MAX_QUORUMS = 9_215_488
+ASYM5_MAX_QUORUMS = 27_584
+# org_qmap(7, 3, 3, 2): the two sides as indices i of testutils.nid(i)
+SPLIT_MAP = (7, 3, 3, 2)
+SPLIT_SIDES = ([0, 1, 300, 301, 600, 601],
+               [2, 302, 602, 100, 101, 102, 400, 401, 402, 200, 201, 202,
+                500, 501, 502])
+SPLIT_MAX_QUORUMS = 16
+# K-QF's comparison: child rows of one depth
+QF_ROWS = 65536
 
 
 def emit(obj) -> None:
@@ -296,10 +326,21 @@ def device_rows(pks, sigs, msgs, dev):
             t(np.stack(rows)))
 
 
+def hold_card() -> None:
+    """Keep the card busy for about 50 ms, so that the calls enqueued
+    behind it run back to back: events then time the card's work, not
+    the rate at which the host enqueues launches (a kernel of tens of
+    microseconds is shorter than its wrapper's host time)."""
+    torch.cuda._sleep(100_000_000)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() on the card over `reps` calls (CUDA events),
-    after one untimed call."""
+    after one untimed call; see hold_card.  A plain version that syncs
+    inside runs at the host's pace all the same."""
     fn()
+    torch.cuda.synchronize()
+    hold_card()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -349,7 +390,9 @@ def kb_imads_run() -> int:
 
 KERNEL_WRAPPERS = {"K-B": tables.build_tables_into,
                    "K-T": tables.verify_tables,
-                   "K-G": ed25519.verify_generic}
+                   "K-G": ed25519.verify_generic,
+                   "K-QF": quorum.flags_kernel,
+                   "K-QC": quorum.compact_kernel}
 
 
 def drive(call) -> dict:
@@ -378,6 +421,283 @@ def report(run: dict) -> dict:
     return {"seconds": run["seconds"], "sigs_per_s": N_SIGS / run["seconds"],
             "launches": run["launches"], "kernel_ms": run["kernel_ms"],
             "busy_share": run["kernel_ms"] / (1e3 * run["seconds"])}
+
+
+# -- quorum intersection -----------------------------------------------------
+
+def bound_from(ops_s: float, nbytes: float):
+    """(bound ms, what bounds it): the larger of the operations' time and
+    the bytes over the memory rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_s * 1e3, "operations") if ops_s * 1e3 >= bytes_ms \
+        else (bytes_ms, "bytes")
+
+
+class _Recorded(Exception):
+    """Ends a recording walk once it has the segment it wanted."""
+
+
+def record_segments(qmap, dev, stop=lambda args: False):
+    """Walk qmap's check on `dev` with the plain segment_step, recording
+    each segment's arguments (real frontier states) until stop(arguments)
+    holds; returns them."""
+    seen = []
+
+    def record(*args, **kw):
+        seen.append(args)
+        if stop(args):
+            raise _Recorded
+        return quorum.segment_step_plain(*args)
+
+    real = quorum.segment_step
+    quorum.segment_step = record
+    try:
+        quorum.CudaQuorumIntersectionChecker(qmap, device=dev).check()
+    except _Recorded:
+        pass
+    finally:
+        quorum.segment_step = real
+    return seen
+
+
+def random_rows(ck, n_rows: int, seed: int) -> torch.Tensor:
+    """Child rows of ck's map, each of its own density (some quorums)."""
+    rng = np.random.default_rng(seed)
+    member = rng.random((n_rows, ck.n)) < rng.uniform(0.2, 1.0, (n_rows, 1))
+    words = np.zeros((n_rows, ck.n_words), dtype=np.int64)
+    for i in range(ck.n):
+        words[:, i // 32] |= member[:, i].astype(np.int64) << (i % 32)
+    return torch.from_numpy(words).to(ck.device)
+
+
+def flags_diff(got, want) -> tuple:
+    """(rows whose flags differ, max |difference|) of two flag triples."""
+    diff = torch.stack([g.int() - w.int() for g, w in zip(got, want)]).abs()
+    return int(diff.amax(0).sum()), int(diff.max())
+
+
+def segment_diff(args) -> tuple:
+    """The CUDA segment_step against the plain one on the same arguments:
+    (differing meta entries + rows of frontier'[:count'] + counted witness
+    rows, max |difference|, the plain meta)."""
+    fk, mk, rk = quorum.segment_step(*args,
+                                     tables=quorum.flag_tables(*args[-4:]))
+    fp, mp, rp = quorum.segment_step_plain(*args)
+    mk, mp = mk.cpu(), mp.cpu()
+    diffs = [(mk - mp).abs()]
+    n = int(mp[2 * quorum.SEG_DEPTHS])
+    diffs.append((fk[:n] - fp[:n]).abs().amax(-1).cpu())
+    for j in range(quorum.SEG_DEPTHS):
+        w = min(int(mp[quorum.SEG_DEPTHS + j]), quorum.WITNESS_CAP)
+        diffs.append((rk[j, :w] - rp[j, :w]).abs().amax(-1).cpu())
+    bad = sum(int((d > 0).sum()) for d in diffs)
+    err = max([int(d.max()) for d in diffs if d.numel()] + [0])
+    return bad, err, mp.tolist()
+
+
+def event_ms(call, kernel: str, reps: int) -> float:
+    """Mean CUDA-event time of `kernel`'s launches over `reps` calls of
+    call(), after one untimed call; see hold_card."""
+    call()
+    torch.cuda.synchronize()
+    _cuda_build.launch_events = []
+    try:
+        hold_card()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        times = [s.elapsed_time(e) for k, s, e in _cuda_build.launch_events
+                 if k == kernel]
+    finally:
+        _cuda_build.launch_events = None
+    return sum(times) / len(times)
+
+
+def word_bytes(*tensors) -> int:
+    """Bytes of the tensors as 32-bit words: the enumerator's node sets
+    are 32-bit words (held in int64 on the card), its thresholds int32."""
+    return 4 * sum(t.numel() for t in tensors)
+
+
+def quorum_kernels_vs_plain(dev) -> dict:
+    """K-QF and K-QC against their plain versions on the card; returns
+    their timing entries for the kernels line."""
+    S = quorum.SEG_DEPTHS
+    half = QF_ROWS // 2
+    t0 = time.perf_counter()
+    # a real asym7 depth: the first segment that starts from >= 32,768 rows
+    fr, count, bits, rems, active, scc, *tabs = record_segments(
+        qmaps.asym_org_qmap(7), dev, lambda a: a[1] >= half)[-1]
+    ft = quorum.flag_tables(*tabs)
+    live = fr[:half]
+    children = torch.cat([live, live | bits[0][None]])
+    qf_args = (children, rems[0], scc, *tabs)
+    got = quorum.prune_step(*qf_args, tables=ft)
+    quorum.popcount_tally = {"distinct": 0, "per_member": 0}
+    try:
+        want = quorum.prune_step_plain(*qf_args)
+        popcounts = dict(quorum.popcount_tally)
+    finally:
+        quorum.popcount_tally = None
+    qf_bad, qf_err = flags_diff(got, want)
+    qf = {"rows_asym7": {"mismatches": qf_bad, "depth_count": int(count),
+                         "alive": int(want[0].sum()),
+                         "quorums": int(want[1].sum()),
+                         "distinct_sets": len(ft.tops) + len(ft.pairs),
+                         "popcounts": popcounts["distinct"],
+                         "popcounts_per_member": popcounts["per_member"]}}
+    # two- and seven-word rows
+    for name, qmap in (("flat40", qmaps.flat_qmap(40, 40)),
+                       ("flat200", qmaps.flat_qmap(200, 134))):
+        ck = quorum.CudaQuorumIntersectionChecker(qmap, device=dev)
+        rows = random_rows(ck, QF_ROWS, seed=ck.n)
+        everyone = (1 << ck.n) - 1
+        rem = torch.from_numpy(quorum._masks_to_words(
+            [everyone >> (ck.n // 2) << (ck.n // 2)], ck.n_words)[0]).to(dev)
+        all_w = torch.from_numpy(
+            quorum._masks_to_words([everyone], ck.n_words)[0]).to(dev)
+        bad, err = flags_diff(quorum.prune_step(rows, rem, all_w, *ck._map(),
+                                                tables=ck.tables),
+                              quorum.prune_step_plain(rows, rem, all_w,
+                                                      *ck._map()))
+        qf[f"rows_{name}"] = {"words": ck.n_words, "mismatches": bad}
+        qf_bad, qf_err = qf_bad + bad, max(qf_err, err)
+
+    # segments: one asym7 depth (K-QC's timed shape), a full asym6 segment,
+    # the split map's witness segment, and a forced overflow
+    cap = next(c for c in quorum.CudaQuorumIntersectionChecker.CAPACITY_BUCKETS
+               if c >= half << S)
+    fr7 = torch.zeros((cap, fr.shape[1]), dtype=torch.int64, device=dev)
+    fr7[:half] = live
+    one_depth = np.array([True] + [False] * (S - 1))
+    seg7 = (fr7, half, bits, rems, one_depth, scc, *tabs)
+    seg6 = record_segments(qmaps.asym_org_qmap(6), dev,
+                           lambda a: a[1] >= 4096)[-1]
+    split = [a for a in record_segments(qmaps.org_qmap(*SPLIT_MAP), dev)
+             if any(quorum.segment_step_plain(*a)[1][S:2 * S].tolist())][0]
+    fr6, count6 = seg6[0], seg6[1]
+    overflow = None
+    for c in (8 * count6, 4 * count6, 2 * count6, count6):
+        small = (fr6[:c] if c <= len(fr6) else torch.cat(
+            [fr6, fr6.new_zeros((c - len(fr6), fr6.shape[1]))]),) + seg6[1:]
+        ovf = int(quorum.segment_step_plain(*small)[1][-1])
+        if ovf >= 0:
+            overflow = small
+            if ovf >= 1:
+                break
+    qc, qc_bad, qc_err = {}, 0, 0
+    for name, args in (("asym7_depth", seg7), ("asym6", seg6),
+                       ("split", split), ("overflow", overflow)):
+        bad, err, meta = segment_diff(args)
+        qc[name] = {"count": int(args[1]), "capacity": len(args[0]),
+                    "mismatches": bad, "meta": meta}
+        qc_bad, qc_err = qc_bad + bad, max(qc_err, err)
+    if qc["split"]["meta"][S:2 * S] == [0] * S or \
+            qc["overflow"]["meta"][-1] < 0:
+        raise AssertionError(f"the witness or overflow segment did not "
+                             f"witness or overflow: {qc}")
+    emit({"phase": "quorum-kernels-vs-plain", "K-QF": qf, "K-QC": qc,
+          "seconds": time.perf_counter() - t0})
+    if qf_bad or qc_bad:
+        raise AssertionError("a quorum kernel disagrees with its plain version")
+
+    # times at the asym7 depth's shape: 65,536 children of 32,768 rows
+    n_words = children.shape[1]
+    timing = {"K-QF": {
+        "ms": cuda_ms(lambda: quorum.prune_step(*qf_args, tables=ft), 20),
+        "plain_ms": cuda_ms(lambda: quorum.prune_step_plain(*qf_args), 3),
+        # the popcounts of each distinct set at each pass; rows read once,
+        # three flag bytes written, the map's tables, remaining and scc
+        "bound": bound_from(popcounts["distinct"] / POPC_PER_S,
+                            word_bytes(children, *ft, rems[0], scc)
+                            + 3 * QF_ROWS),
+        "max_abs_err": qf_err, "library_ms": None}}
+    alive, is_q, wit = want
+    kept = int(alive.sum())
+    timing["K-QC"] = {
+        "ms": event_ms(lambda: quorum.segment_step(*seg7, tables=ft),
+                       "K-QC", 20),
+        "plain_ms": cuda_ms(lambda: quorum.compact_plain(children, *want), 5),
+        # three flag bytes a child and the 32,768 source rows read once, the
+        # kept rows written (32-bit words); the scans' additions at the
+        # multiply-add rate
+        "bound": bound_from(4 * QF_ROWS / IMAD_PER_S,
+                            3 * QF_ROWS + 4 * (half + kept) * n_words),
+        "max_abs_err": qc_err,
+        "library_ms": cuda_ms(lambda: children[alive], 20)}
+    emit({"phase": "quorum-kernel-times",
+          "K-QF_in_segment_ms": event_ms(
+              lambda: quorum.segment_step(*seg7, tables=ft), "K-QF", 20),
+          **{k: {"ms": v["ms"], "plain_ms": v["plain_ms"],
+                 "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
+                 "library_ms": v["library_ms"]} for k, v in timing.items()}})
+    return timing
+
+
+def quorum_report(run: dict) -> dict:
+    return {"seconds": run["seconds"], "launches": run["launches"],
+            "kernel_ms": run["kernel_ms"],
+            "busy_share": run["kernel_ms"] / (1e3 * run["seconds"])}
+
+
+def check_cuda(qmap):
+    """What check_intersection_cuda(qmap) does, with no device argument,
+    keeping the checker so that its stats can be read."""
+    ck = quorum.CudaQuorumIntersectionChecker(qmap)
+    return ck.check(), ck.stats
+
+
+def quorum_main_paths() -> dict:
+    """The checker on the default card, with no device argument: asym7,
+    the split map (through check_intersection_cuda) and asym5 on tiny
+    buckets.  Returns asym7's launches."""
+    run = drive(lambda: check_cuda(qmaps.asym_org_qmap(7)))
+    res, stats = run["verdicts"]
+    emit({"phase": "main-quorum", "map": "asym7", "nodes": res.node_count,
+          "intersects": res.intersects,
+          "max_quorums_found": res.max_quorums_found,
+          "frontier_peak": stats["frontier_peak"], **quorum_report(run)})
+    if not res.intersects or res.max_quorums_found != ASYM7_MAX_QUORUMS \
+            or run["launches"]["K-QC"] < 1:
+        raise AssertionError(f"asym7: {res}, launches {run['launches']}")
+    main_launches = run["launches"]
+
+    qmap = qmaps.org_qmap(*SPLIT_MAP)
+    run = drive(lambda: quorum.check_intersection_cuda(qmap))
+    res = run["verdicts"]
+    want = tuple([qmaps.nid(i) for i in side] for side in SPLIT_SIDES)
+    oracle = QuorumIntersectionChecker(qmap)
+    a, b = ([sum(1 << oracle.index[v] for v in side) for side in res.split]
+            if res.split else (0, 0))
+    accepted = oracle.is_quorum(a) and oracle.is_quorum(b) and not a & b
+    emit({"phase": "main-quorum-split", "map": "org_qmap%s" % (SPLIT_MAP,),
+          "intersects": res.intersects,
+          "split_sizes": [len(s) for s in res.split or ()],
+          "split_equals_jax": res.split == want, "oracle_accepts": accepted,
+          "max_quorums_found": res.max_quorums_found, **quorum_report(run)})
+    if res.intersects or res.split != want or not accepted \
+            or res.max_quorums_found != SPLIT_MAX_QUORUMS:
+        raise AssertionError(f"split map: {res}")
+
+    checker = quorum.CudaQuorumIntersectionChecker
+    buckets = checker.CAPACITY_BUCKETS
+    checker.CAPACITY_BUCKETS = (8, 16)
+    try:
+        run = drive(lambda: check_cuda(qmaps.asym_org_qmap(5)))
+    finally:
+        checker.CAPACITY_BUCKETS = buckets
+    res, stats = run["verdicts"]
+    launches = run["launches"]
+    emit({"phase": "main-quorum-ladder", "map": "asym5", "buckets": [8, 16],
+          "intersects": res.intersects,
+          "max_quorums_found": res.max_quorums_found,
+          "frontier_peak": stats["frontier_peak"], **quorum_report(run)})
+    # every segment depth launches one K-QF and one K-QC: the K-QF
+    # launches beyond K-QC's are the host-chunked depths'
+    if not res.intersects or res.max_quorums_found != ASYM5_MAX_QUORUMS \
+            or launches["K-QF"] <= launches["K-QC"]:
+        raise AssertionError(f"asym5 ladder: {res}, launches {launches}")
+    return main_launches
 
 
 def smi_line(dev) -> str:
@@ -548,7 +868,8 @@ def run(dev) -> int:
                              f"{int(steady['verdicts'].sum())}, not {expect}")
     cold_launches = first["launches"]
     if stats["generic_sigs"] != 2 * N_SIGS or cold_launches != {
-            "K-B": 0, "K-T": 0, "K-G": N_SIGS // COLD_CHUNK}:
+            "K-B": 0, "K-T": 0, "K-G": N_SIGS // COLD_CHUNK, "K-QF": 0,
+            "K-QC": 0}:
         raise AssertionError(f"cold path did not run on K-G: {stats} "
                              f"{cold_launches}")
     cold_runs = first, steady
@@ -559,6 +880,10 @@ def run(dev) -> int:
           "cold_sigs_per_s": N_SIGS / cold_runs[0]["seconds"],
           "cold_steady_sigs_per_s": N_SIGS / cold_runs[1]["seconds"]})
 
+    # -- quorum intersection (bench.py config 5) ----------------------------
+    timing.update(quorum_kernels_vs_plain(dev))
+    quorum_launches = quorum_main_paths()
+
     # -- the kernels line -------------------------------------------------
     meta = {
         "K-G": ("stellar_core_tpu_torch/csrc/verify_generic.cu",
@@ -568,6 +893,12 @@ def run(dev) -> int:
                 "stellar_core_tpu/accel/tables.py:51", hot_launches["K-B"]),
         "K-T": ("stellar_core_tpu_torch/csrc/tables.cu",
                 "stellar_core_tpu/accel/tables.py:109", hot_launches["K-T"]),
+        "K-QF": ("stellar_core_tpu_torch/csrc/quorum.cu",
+                 "stellar_core_tpu/accel/quorum.py:163",
+                 quorum_launches["K-QF"]),
+        "K-QC": ("stellar_core_tpu_torch/csrc/quorum.cu",
+                 "stellar_core_tpu/accel/quorum.py:195",
+                 quorum_launches["K-QC"]),
     }
     kernels = []
     for name, (source, replaces, count) in meta.items():
@@ -577,7 +908,7 @@ def run(dev) -> int:
             "replaces": replaces, "launches": count,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-            "bound_by": t["bound"][1], "library_ms": None})
+            "bound_by": t["bound"][1], "library_ms": t.get("library_ms")})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,10 +1,11 @@
 """Carry the JAX package's device state into the port.
 
-The JAX side's arrays come in as numpy (``np.asarray`` of a jax array):
-16-limb int64 field elements, partially reduced.  The port keeps device
+The JAX side's arrays come in as numpy (``np.asarray`` of a jax array).
+Field elements are 16-limb int64, partially reduced; the port keeps device
 state as canonical 32-byte encodings on every device (the generic path's
 key rows, the resident key tables, the base table), so ``canonical_bytes``
-is the whole conversion.
+is the whole conversion.  Quorum bitmasks are uint32 words; the port holds
+them as int64 words with 32 bits used (``words_from_jax``).
 """
 
 from __future__ import annotations
@@ -37,3 +38,18 @@ def key_table_from_jax(np_table: np.ndarray, slot_of: dict, *,
     cache.table = torch.from_numpy(canonical_bytes(np_table)).to(cache.device)
     cache.slot_of = dict(slot_of)
     return cache
+
+
+def words_from_jax(words: np.ndarray, device="cpu") -> torch.Tensor:
+    """uint32 bitmask words (any shape) -> the port's int64 words."""
+    return torch.from_numpy(np.asarray(words).astype(np.int64)).to(device)
+
+
+def quorum_state_from_jax(checker, frontier: np.ndarray, device="cpu"):
+    """A reference TPUQuorumIntersectionChecker's map tables and a [B, W]
+    uint32 frontier -> (frontier, top_thr, top_masks, inner_thr,
+    inner_masks) as the port's quorum functions take them."""
+    thr = lambda a: torch.from_numpy(np.asarray(a).astype(np.int32)).to(device)
+    return (words_from_jax(frontier, device), thr(checker.top_thr),
+            words_from_jax(checker.top_masks, device), thr(checker.inner_thr),
+            words_from_jax(checker.inner_masks, device))

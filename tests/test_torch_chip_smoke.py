@@ -1,9 +1,9 @@
 """What of chip_smoke.py runs without a card: its pure-Python RFC 8032
 signer equals libsodium byte for byte, its fixed adversarial verdicts are
-libsodium's, its kernel operation counts follow the device code, its
-main-path runs count launches and kernel time per call, and the script
-refuses to run (exit 2, no result) without CUDA and fails in a directory
-that holds only itself."""
+libsodium's, its fixed quorum results are the JAX package's, its kernel
+operation counts follow the device code, its main-path runs count launches
+and kernel time per call, and the script refuses to run (exit 2, no
+result) without CUDA and fails in a directory that holds only itself."""
 
 import os
 import shutil
@@ -61,6 +61,39 @@ def test_operation_counts():
     assert chip_smoke.kb_imads_run() == 32256 * 55 + 41408 * 100
     ms, by = chip_smoke.bound_ms(1e12, 1.0)
     assert by == "operations" and ms == pytest.approx(1e15 / (132 * 64 * 1.98e9))
+    # quorum kernels: __popc at 16 a clock per SM (compute capability 9.0)
+    assert chip_smoke.POPC_PER_S == 132 * 16 * 1.98e9
+    assert chip_smoke.bound_from(1e-6, 3.35e12) == (1000.0, "bytes")
+    assert chip_smoke.bound_from(2.0, 3.35e12) == (2000.0, "operations")
+
+
+def test_quorum_constants_are_the_jax_packages():
+    """The split of org_qmap(7, 3, 3, 2) and asym5's max_quorums_found, as
+    the script fixes them, against the JAX package's checker.  (asym7's
+    9,215,488 is the native engine's, 136 s on a CPU: too slow here.)"""
+    pytest.importorskip("jax")
+    from stellar_core_tpu.accel.quorum import check_intersection_tpu
+    from stellar_core_tpu.testutils import asym_org_qmap
+    from stellar_core_tpu.xdr import scp as SX
+    from stellar_core_tpu.xdr import types as XT
+    from stellar_core_tpu_torch.testutils import nid
+
+    def qset(threshold, validators=(), inner=()):
+        return SX.SCPQuorumSet(threshold=threshold,
+                               validators=[XT.node_id(v) for v in validators],
+                               innerSets=list(inner))
+
+    n_orgs, size, top, inner = chip_smoke.SPLIT_MAP
+    orgs = [[nid(100 * o + i) for i in range(size)] for o in range(n_orgs)]
+    qmap = {v: qset(top, inner=[qset(inner, org) for org in orgs])
+            for org in orgs for v in org}
+    res = check_intersection_tpu(qmap)
+    assert not res.intersects
+    assert res.split == tuple([nid(i) for i in side]
+                              for side in chip_smoke.SPLIT_SIDES)
+    assert res.max_quorums_found == chip_smoke.SPLIT_MAX_QUORUMS
+    assert check_intersection_tpu(asym_org_qmap(5)).max_quorums_found == \
+        chip_smoke.ASYM5_MAX_QUORUMS
 
 
 class _Event:
@@ -85,7 +118,8 @@ def test_drive_counts_one_calls_launches_and_kernel_time():
 
     run = chip_smoke.drive(call)
     assert _cuda_build.launch_events is None
-    assert run["launches"] == {"K-B": 0, "K-T": 2, "K-G": 0}
+    assert run["launches"] == {"K-B": 0, "K-T": 2, "K-G": 0, "K-QF": 0,
+                               "K-QC": 0}
     assert run["kernel_ms"] == 0.75 and run["verdicts"].all()
     rep = chip_smoke.report(run)
     assert rep["busy_share"] == pytest.approx(0.75 / (1e3 * run["seconds"]))

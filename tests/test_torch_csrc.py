@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from stellar_core_tpu_torch.accel import curve, ed25519, field, tables
+from stellar_core_tpu_torch import testutils
+from stellar_core_tpu_torch.accel import curve, ed25519, field, quorum, tables
 from stellar_core_tpu_torch.crypto import sodium
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -46,6 +47,12 @@ def host(tmp_path_factory):
     lib.host_verify_generic.argtypes = [VP, VP, VP, VP, i64, VP, i64, VP]
     lib.host_build_tables.argtypes = [VP, VP, i64, VP, i64]
     lib.host_verify_tables.argtypes = [VP, VP, VP, VP, i64, VP, i64, VP, VP]
+    c_int = ctypes.c_int
+    lib.host_quorum_flags.argtypes = [VP, i64, c_int, VP, VP, c_int, c_int,
+                                      c_int, c_int, VP, VP, VP, VP, VP, VP,
+                                      VP]
+    lib.host_quorum_flags_smem.argtypes = [c_int] * 6
+    lib.host_quorum_flags_smem.restype = i64
     return lib
 
 
@@ -207,3 +214,93 @@ def test_verify_tables_body_matches_plain_and_libsodium(host):
                                          t(table[:nk]), t(base))
     expect = [sodium.verify_detached(sg, m, pk) for pk, sg, m in zip(pks, sigs, msgs)]
     assert out.astype(bool).tolist() == plain.tolist() == expect
+
+
+def random_quorum_rows(qmap, n_rows, seed):
+    """A map's tables as the CUDA checker holds them, plus random child
+    rows (each of its own density, so some are quorums), a random
+    remaining-mask and the all-nodes scc, as int64 words."""
+    ck = quorum.CudaQuorumIntersectionChecker(qmap, device="cpu")
+    rng = np.random.default_rng(seed)
+    n, w = ck.n, ck.n_words
+    member = rng.random((n_rows, n)) < rng.uniform(0.2, 1.0, (n_rows, 1))
+    rows = quorum._masks_to_words(
+        [sum(1 << int(i) for i in np.nonzero(m)[0]) for m in member], w)
+    rem = quorum._masks_to_words([int(rng.integers(1 << min(n, 62)))], w)[0]
+    scc = quorum._masks_to_words([(1 << n) - 1], w)[0]
+    return ck, rows, rem, scc
+
+
+def _twice_held_map():
+    """Six nodes whose qsets hold one inner set twice: 3 of [A, A, B]."""
+    ids = [testutils.nid(i) for i in range(6)]
+    a, b = testutils.qset(2, ids[:3]), testutils.qset(2, ids[3:])
+    return {v: testutils.qset(3, inner=[a, a, b]) for v in ids}
+
+
+@pytest.mark.parametrize("name,qmap", [
+    ("asym5-W1", testutils.asym_org_qmap(5)),
+    ("flat40-W2", testutils.flat_qmap(40, 30)),
+    ("org13-W2", testutils.org_qmap(13, 3, 7, 2)),
+    ("split7-W1", testutils.org_qmap(7, 3, 3, 2)),
+    ("split67-W7", testutils.org_qmap(67, 3, 20, 2)),
+    ("rings16-W1", testutils.adversarial_quorum_map(16)),
+    ("twice-W1", _twice_held_map())])
+def test_quorum_flags_body_matches_plain(host, name, qmap):
+    """K-QF's per-row body (csrc/quorum.cuh) on the deduplicated tables
+    flag_tables makes equals the plain child_flags on the padded ones; the
+    shared memory the wrapper checks is the kernel's."""
+    ck, rows, rem, scc = random_quorum_rows(qmap, 300, seed=len(name))
+    t = torch.from_numpy
+    dead, is_q, wit = quorum.child_flags(t(rows), t(rem), t(scc), ck.top_thr,
+                                         ck.top_masks, ck.inner_thr,
+                                         ck.inner_masks)
+    want = ((~dead & ~is_q).int() | is_q.int() << 1 | wit.int() << 2).numpy()
+    assert is_q.any() and (~dead & ~is_q).any(), name
+    assert wit.any() == name.startswith("split"), name
+    tabs = ck.tables
+    n, pair_words = tabs.node_pairs.shape
+    n_tops, n_pairs = len(tabs.tops), len(tabs.pairs)
+    arrays = [np.ascontiguousarray(a.numpy()) for a in tabs]
+    out = np.zeros(len(rows), dtype=np.uint8)
+    assert host.host_quorum_flags(
+        _ptr(rows), len(rows), ck.n_words, _ptr(rem), _ptr(scc), n, n_tops,
+        n_pairs, pair_words, *map(_ptr, arrays), _ptr(out)) == 0
+    assert out.tolist() == want.tolist(), name
+    assert quorum.flags_smem_bytes(tabs) == host.host_quorum_flags_smem(
+        n, n_tops, n_pairs, pair_words, ck.n_words, quorum.QF_THREADS)
+
+
+def test_flag_tables_hold_each_set_once():
+    """asym7: 27 nodes, one (empty) top mask and the 7 orgs' inner sets;
+    a set a qset holds twice is two pairs; padding is left out."""
+    ck = quorum.CudaQuorumIntersectionChecker(testutils.asym_org_qmap(7),
+                                              device="cpu")
+    assert (len(ck.tables.tops), len(ck.tables.pairs)) == (1, 7)
+    assert ck.tables.node_pairs.tolist() == [[0x7F]] * 27
+    twice = quorum.CudaQuorumIntersectionChecker(_twice_held_map(),
+                                                 device="cpu").tables
+    assert twice.pair_thr.tolist() == [2, 2, 2]
+    assert twice.node_pairs.tolist() == [[0b111]] * 6
+    flat = quorum.CudaQuorumIntersectionChecker(testutils.flat_qmap(5, 3),
+                                                device="cpu").tables
+    assert flat.pairs.shape == (0, 1) and flat.node_pairs.shape == (5, 0)
+
+
+@pytest.mark.parametrize("source,entry", [
+    ("verify_generic", ed25519._K_G), ("tables", tables._K_B),
+    ("tables", tables._K_T), ("fe_check", field._FE_CHECK),
+    ("quorum", quorum._K_QF), ("quorum", quorum._K_QC)],
+    ids=lambda v: v if isinstance(v, str) else v[0])
+def test_ctypes_argtypes_match_the_c_entry(source, entry):
+    """Each wrapper's ctypes argtypes follow its C entry's parameters one
+    for one (pointer, int64_t, int; the stream last): a missing one would
+    pass the stream, a 64-bit pointer, as a 32-bit int."""
+    name, argtypes = entry
+    text = (CSRC / f"{source}.cu").read_text()
+    params = re.search(rf'extern "C" int {name}\((.*?)\)', text,
+                       re.S).group(1).split(",")
+    kinds = [ctypes.c_void_p if "*" in p else
+             ctypes.c_int64 if "int64_t" in p else ctypes.c_int
+             for p in params]
+    assert argtypes == kinds

@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from stellar_core_tpu_torch import _cuda_build, device
-from stellar_core_tpu_torch.accel import ed25519, field, tables
+from stellar_core_tpu_torch import _cuda_build, device, testutils
+from stellar_core_tpu_torch.accel import ed25519, field, quorum, tables
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_MODULES = sorted(
@@ -57,6 +57,11 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
         ed25519.Ed25519BatchVerifier()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ed25519.verify_batch(*_one_signature(), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quorum.check_intersection_cuda(testutils.flat_qmap(4, 3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        quorum.CudaQuorumIntersectionChecker(testutils.flat_qmap(4, 3),
+                                             device="cuda")
     with pytest.raises(ValueError):
         device.resolve("meta")
     assert device.resolve("cpu") == torch.device("cpu")
@@ -82,6 +87,27 @@ def test_wrappers_refuse_non_cpu_tensors_instead_of_running_plain():
     assert counts == (ed25519.verify_generic.launches,
                       tables.verify_tables.launches,
                       tables.build_tables_into.launches, field.fe_check.launches)
+
+
+def test_quorum_wrappers_refuse_non_cpu_tensors():
+    m = lambda *shape, dtype=torch.int64: torch.empty(shape, dtype=dtype,
+                                                      device="meta")
+    table = (m(3, dtype=torch.int32), m(3, 1), m(3, 2, dtype=torch.int32),
+             m(3, 2, 1))
+    counts = (quorum.flags_kernel.launches, quorum.compact_kernel.launches)
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        quorum.prune_step(m(8, 1), m(1), m(1), *table)
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        quorum.segment_step(m(16, 1), 1, m(4, 1), m(4, 1),
+                            np.ones(4, dtype=bool), m(1), *table)
+    assert counts == (quorum.flags_kernel.launches,
+                      quorum.compact_kernel.launches)
+    # on the CPU: the plain versions, no launch
+    cpu = quorum.CudaQuorumIntersectionChecker(testutils.flat_qmap(4, 3),
+                                               device="cpu")
+    assert cpu.check().intersects
+    assert counts == (quorum.flags_kernel.launches,
+                      quorum.compact_kernel.launches)
 
 
 def test_cpu_runs_take_the_plain_versions_and_count_no_launches():
@@ -116,6 +142,8 @@ def test_ptxas_report_parses_registers_and_spills():
 
 
 def test_library_path_tracks_the_sources():
+    assert _cuda_build.SOURCES == ("verify_generic", "tables", "fe_check",
+                                   "quorum")
     paths = {n: _cuda_build.library_path(n) for n in _cuda_build.SOURCES}
     assert all(p.parent == _cuda_build.BUILD_DIR for p in paths.values())
     assert len(set(paths.values())) == len(paths)
