@@ -20,7 +20,14 @@ with every 100th signature's R corrupted (655 bad, 64,881 accepted); and
   (27 validators in 7 organisations, 9,215,488 minimal-quorum hits),
   through kernels K-QF and K-QC; a splitting tier-1-width map (7 orgs x 3
   validators, 3-of-7) whose split must be the JAX package's; and asym5
-  with capacity buckets (8, 16), which forces the host-chunked depths.
+  with capacity buckets (8, 16), which forces the host-chunked depths;
+
+* the graft entry (stellar_core_tpu_torch/graft_entry.py): K-W, the
+  windows form of K-G, against its plain version on the cold path's 8,192
+  signatures, its fused accept count, and ``entry()``'s step; then the
+  multi-card forms, as shards on the one card the machine has:
+  ``dryrun_multigpu(4)``, both verify paths with ``devices=[card, card]``
+  and asym5 and the split map through the sharded quorum checker.
 
 Each phase prints one JSON line; then the card's name and power limit as
 nvidia-smi gives them, the kernels line, and last
@@ -28,8 +35,9 @@ nvidia-smi gives them, the kernels line, and last
 not 0 and the last line is not printed.  Without CUDA it exits 2.
 
 Signatures come from libsodium where it loads, else from the pure-Python
-RFC 8032 signer below (deterministic signing: the same bytes libsodium
-makes), which signs a few thousand distinct triples and tiles them.
+RFC 8032 signer (stellar_core_tpu_torch/crypto/rfc8032.py; deterministic
+signing: the same bytes libsodium makes), which signs a few thousand
+distinct triples and tiles them.
 """
 
 from __future__ import annotations
@@ -44,10 +52,12 @@ import time
 import numpy as np
 import torch
 
-from stellar_core_tpu_torch import _cuda_build
+from stellar_core_tpu_torch import _cuda_build, graft_entry
 from stellar_core_tpu_torch import testutils as qmaps
 from stellar_core_tpu_torch.accel import curve, ed25519, field, quorum, tables
 from stellar_core_tpu_torch.crypto import sodium
+from stellar_core_tpu_torch.crypto.rfc8032 import Signer
+from stellar_core_tpu_torch.device import Shards, parts
 from stellar_core_tpu_torch.herder.quorum_intersection import (
     QuorumIntersectionChecker)
 
@@ -88,77 +98,6 @@ QF_ROWS = 65536
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-# -- pure-Python RFC 8032 signer (used only where libsodium is missing) -----
-
-def _pt_add(p, q):
-    """Extended-coordinate add (complete, a = -1) on python ints."""
-    x1, y1, z1, t1 = p
-    x2, y2, z2, t2 = q
-    a = (y1 - x1) * (y2 - x2) % P
-    b = (y1 + x1) * (y2 + x2) % P
-    c = t1 * t2 % P * curve.D2 % P
-    d = 2 * z1 * z2 % P
-    e, f, g, h = b - a, d - c, d + c, b + a
-    return (e * f % P, g * h % P, f * g % P, e * h % P)
-
-
-_B_POW2 = []   # B * 2^i, i = 0..255, extended coordinates
-
-
-def _base_mult(k: int):
-    if not _B_POW2:
-        pt = (curve.BX, curve.BY, 1, curve.BX * curve.BY % P)
-        for _ in range(256):
-            _B_POW2.append(pt)
-            pt = _pt_add(pt, pt)
-    acc = (0, 1, 1, 0)
-    for i in range(k.bit_length()):
-        if (k >> i) & 1:
-            acc = _pt_add(acc, _B_POW2[i])
-    return acc
-
-
-def _encode(pt) -> bytes:
-    x, y, z, _ = pt
-    zi = pow(z, P - 2, P)
-    x, y = x * zi % P, y * zi % P
-    return (y | ((x & 1) << 255)).to_bytes(32, "little")
-
-
-def py_keypair(seed: bytes):
-    """(pk, sk) from a 32-byte seed, as crypto_sign_seed_keypair."""
-    d = hashlib.sha512(seed).digest()
-    a = int.from_bytes(d[:32], "little")
-    a = (a & ((1 << 254) - 8)) | (1 << 254)
-    pk = _encode(_base_mult(a))
-    return pk, (a, d[32:], pk)
-
-
-def py_sign(msg: bytes, sk) -> bytes:
-    a, prefix, pk = sk
-    r = int.from_bytes(hashlib.sha512(prefix + msg).digest(), "little") % L
-    big_r = _encode(_base_mult(r))
-    h = int.from_bytes(hashlib.sha512(big_r + pk + msg).digest(), "little") % L
-    return big_r + ((r + h * a) % L).to_bytes(32, "little")
-
-
-class Signer:
-    """libsodium where it loads, else the RFC 8032 signer above."""
-
-    def __init__(self):
-        self.name = "libsodium" if sodium.available() else "python-rfc8032"
-
-    def keypair(self, seed: bytes):
-        if sodium.available():
-            return sodium.sign_seed_keypair(seed)
-        return py_keypair(seed)
-
-    def sign(self, msg: bytes, sk) -> bytes:
-        if sodium.available():
-            return sodium.sign_detached(msg, sk)
-        return py_sign(msg, sk)
 
 
 # -- the adversarial vectors of tests/test_accel_ed25519.py:43-168 ----------
@@ -351,6 +290,23 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def two_stream_ms(dev, launch, n: int, reps: int) -> float:
+    """Mean ms of one chunk of n rows split into two contiguous halves,
+    launch(lo, hi) each on its own stream of `dev`, forked from and joined
+    back to the current stream: the sharded forms' step with two shards on
+    one card (see cuda_ms)."""
+    shards = Shards([dev, dev])
+
+    def step():
+        for k, (lo, hi) in enumerate(parts(n, 2)):
+            with shards.on(k):
+                launch(lo, hi)
+        for k in range(2):
+            shards.join(k)
+
+    return cuda_ms(step, reps)
+
+
 def bound_ms(imads: float, nbytes: float):
     ops_ms = imads / IMAD_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -388,19 +344,43 @@ def kb_imads_run() -> int:
     return dbl * 4 * SQ_IMADS + (dbl * 4 + tables.NWIN * (1 + 2 + 14 * 10)) * MUL_IMADS
 
 
+def kw_bytes(n: int) -> int:
+    """K-W's bytes for n signatures: 127 int32 windows, a key's 96 bytes
+    and R's 32 read, one verdict byte written, and the count's 4 bytes."""
+    return n * (127 * 4 + 96 + 32 + 1) + 4
+
+
 KERNEL_WRAPPERS = {"K-B": tables.build_tables_into,
                    "K-T": tables.verify_tables,
                    "K-G": ed25519.verify_generic,
                    "K-QF": quorum.flags_kernel,
-                   "K-QC": quorum.compact_kernel}
+                   "K-QC": quorum.compact_kernel,
+                   "K-W": ed25519.verify_windows}
+
+
+def union_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals: the time at least one
+    kernel ran, where launches on several streams overlap."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
 
 
 def drive(call) -> dict:
     """One main-path call: launch counts set to 0 just before and read just
     after, its wall seconds, and the device time of the kernels it launched
-    (CUDA events recorded around each launch)."""
+    (CUDA events recorded around each launch): their sum, and on a machine
+    with one card the union of their spans (busy_ms), which counts the
+    time two streams' launches overlap once."""
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    origin = None
+    if torch.cuda.is_available() and torch.cuda.device_count() == 1:
+        origin = torch.cuda.Event(enable_timing=True)
+        origin.record()
     _cuda_build.launch_events = []
     try:
         t0 = time.perf_counter()
@@ -411,16 +391,32 @@ def drive(call) -> dict:
         _cuda_build.launch_events = None
     # the verdicts are home, so every end event has completed
     kernel_ms = sum(start.elapsed_time(end) for _, start, end in events)
+    busy_ms = None if origin is None else union_ms(
+        (origin.elapsed_time(start), origin.elapsed_time(end))
+        for _, start, end in events)
     return {"verdicts": verdicts, "seconds": seconds, "kernel_ms": kernel_ms,
+            "busy_ms": busy_ms,
             "launches": {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}}
 
 
+def call_report(run: dict) -> dict:
+    """A drive() result's seconds, launches and kernel time; busy_share is
+    the kernels' summed device time over the call's wall time,
+    busy_union_share the union of their spans over it (the card's busy
+    share where launches on several streams overlap)."""
+    wall_ms = 1e3 * run["seconds"]
+    return {"seconds": run["seconds"], "launches": run["launches"],
+            "kernel_ms": run["kernel_ms"],
+            "busy_share": run["kernel_ms"] / wall_ms,
+            "busy_ms": run["busy_ms"],
+            "busy_union_share": None if run["busy_ms"] is None
+            else run["busy_ms"] / wall_ms}
+
+
 def report(run: dict) -> dict:
-    """What a main-path line prints of a drive() result; busy_share is the
-    kernels' device time over the call's wall time."""
-    return {"seconds": run["seconds"], "sigs_per_s": N_SIGS / run["seconds"],
-            "launches": run["launches"], "kernel_ms": run["kernel_ms"],
-            "busy_share": run["kernel_ms"] / (1e3 * run["seconds"])}
+    """What a verify main-path line prints of a drive() result: its rate
+    and call_report's numbers."""
+    return {"sigs_per_s": N_SIGS / run["seconds"], **call_report(run)}
 
 
 # -- quorum intersection -----------------------------------------------------
@@ -605,6 +601,8 @@ def quorum_kernels_vs_plain(dev) -> dict:
     n_words = children.shape[1]
     timing = {"K-QF": {
         "ms": cuda_ms(lambda: quorum.prune_step(*qf_args, tables=ft), 20),
+        "ms_2_streams": two_stream_ms(dev, lambda lo, hi: quorum.prune_step(
+            children[lo:hi], *qf_args[1:], tables=ft), QF_ROWS, 20),
         "plain_ms": cuda_ms(lambda: quorum.prune_step_plain(*qf_args), 3),
         # the popcounts of each distinct set at each pass; rows read once,
         # three flag bytes written, the map's tables, remaining and scc
@@ -634,12 +632,6 @@ def quorum_kernels_vs_plain(dev) -> dict:
     return timing
 
 
-def quorum_report(run: dict) -> dict:
-    return {"seconds": run["seconds"], "launches": run["launches"],
-            "kernel_ms": run["kernel_ms"],
-            "busy_share": run["kernel_ms"] / (1e3 * run["seconds"])}
-
-
 def check_cuda(qmap):
     """What check_intersection_cuda(qmap) does, with no device argument,
     keeping the checker so that its stats can be read."""
@@ -656,7 +648,7 @@ def quorum_main_paths() -> dict:
     emit({"phase": "main-quorum", "map": "asym7", "nodes": res.node_count,
           "intersects": res.intersects,
           "max_quorums_found": res.max_quorums_found,
-          "frontier_peak": stats["frontier_peak"], **quorum_report(run)})
+          "frontier_peak": stats["frontier_peak"], **call_report(run)})
     if not res.intersects or res.max_quorums_found != ASYM7_MAX_QUORUMS \
             or run["launches"]["K-QC"] < 1:
         raise AssertionError(f"asym7: {res}, launches {run['launches']}")
@@ -674,7 +666,7 @@ def quorum_main_paths() -> dict:
           "intersects": res.intersects,
           "split_sizes": [len(s) for s in res.split or ()],
           "split_equals_jax": res.split == want, "oracle_accepts": accepted,
-          "max_quorums_found": res.max_quorums_found, **quorum_report(run)})
+          "max_quorums_found": res.max_quorums_found, **call_report(run)})
     if res.intersects or res.split != want or not accepted \
             or res.max_quorums_found != SPLIT_MAX_QUORUMS:
         raise AssertionError(f"split map: {res}")
@@ -691,13 +683,144 @@ def quorum_main_paths() -> dict:
     emit({"phase": "main-quorum-ladder", "map": "asym5", "buckets": [8, 16],
           "intersects": res.intersects,
           "max_quorums_found": res.max_quorums_found,
-          "frontier_peak": stats["frontier_peak"], **quorum_report(run)})
+          "frontier_peak": stats["frontier_peak"], **call_report(run)})
     # every segment depth launches one K-QF and one K-QC: the K-QF
     # launches beyond K-QC's are the host-chunked depths'
     if not res.intersects or res.max_quorums_found != ASYM5_MAX_QUORUMS \
             or launches["K-QF"] <= launches["K-QC"]:
         raise AssertionError(f"asym5 ladder: {res}, launches {launches}")
     return main_launches
+
+
+# -- the graft entry and the multi-card forms --------------------------------
+
+def graft_entry_phase(kw_args) -> dict:
+    """K-W against its plain version on the cold path's 8,192 signatures
+    (as they are, with every 100th R corrupted at another offset, and with
+    two windows outside [0, 16), which K-W rejects and the plain version
+    refuses), its fused count, its times; then the graft entry's step
+    driven as a main path.  Returns K-W's timing entry."""
+    windows, keys, r = kw_args
+    n = windows.shape[1]
+    got = ed25519.verify_windows(*kw_args)
+    want = ed25519.verify_windows_plain(*kw_args)
+    bad = int((got != want).sum())
+    r2 = r.clone()
+    r2[::100, 0] ^= 1
+    got2 = ed25519.verify_windows(windows, keys, r2)
+    want2 = ed25519.verify_windows_plain(windows, keys, r2)
+    bad += int((got2 != want2).sum())
+    out_of_range = windows.clone()
+    out_of_range[5, 3], out_of_range[7, 9] = 16, -1
+    got3 = ed25519.verify_windows(out_of_range, keys, r)
+    rejects = not bool(got3[3]) and not bool(got3[9])
+    keep = torch.ones(n, dtype=torch.bool, device=windows.device)
+    keep[[3, 9]] = False
+    bad += int((got3[keep] != want[keep]).sum())
+    count = torch.zeros(1, dtype=torch.int32, device=windows.device)
+    fused = ed25519.verify_windows(*kw_args, count=count)
+    fused_count = int(count.item())
+    count_ok = fused_count == int(fused.sum()) == int(want.sum())
+
+    small = (windows[:, :8].contiguous(), keys[:8], r[:8])
+    timing = {
+        "ms": cuda_ms(lambda: ed25519.verify_windows(*kw_args), 5),
+        "ms_fused_count": cuda_ms(
+            lambda: ed25519.verify_windows(*kw_args, count=count), 5),
+        "ms_8": cuda_ms(lambda: ed25519.verify_windows(*small), 20),
+        "plain_ms": cuda_ms(lambda: ed25519.verify_windows_plain(*kw_args), 1),
+        "plain_ms_8": cuda_ms(lambda: ed25519.verify_windows_plain(*small), 2),
+        "bound": bound_ms(n * kg_imads(), kw_bytes(n)),
+        "bound_8": bound_ms(8 * kg_imads(), kw_bytes(8)),
+        "max_abs_err": int((got.int() - want.int()).abs().max())}
+
+    # the graft entry's step, through the entry a user calls
+    def entry_call():
+        fn, args = graft_entry.entry()
+        return fn(*args).cpu(), args
+
+    run = drive(entry_call)
+    verdicts, args = run["verdicts"]
+    plain = ed25519.verify_windows_plain(*args).cpu()
+    emit({"phase": "graft-entry", "signatures": n, "mismatches": bad,
+          "rejects_windows_out_of_range": rejects,
+          "accepted": int(want.sum()), "accepted_r_corrupted": int(want2.sum()),
+          "fused_count": fused_count, "fused_count_equals_sum": count_ok,
+          "entry_verdicts": verdicts.tolist(),
+          "entry_equals_plain": bool((verdicts == plain).all()),
+          "entry_launches": run["launches"], "entry_seconds": run["seconds"],
+          "ms": timing["ms"], "ms_fused_count": timing["ms_fused_count"],
+          "ms_8": timing["ms_8"], "plain_ms": timing["plain_ms"],
+          "plain_ms_8": timing["plain_ms_8"], "bound_ms": timing["bound"][0],
+          "bound_ms_8": timing["bound_8"][0], "bound_by": timing["bound"][1],
+          "imads_per_sig": kg_imads(), "bytes": kw_bytes(n)})
+    if bad or not rejects or not count_ok or not bool(verdicts.all()) \
+            or not bool((verdicts == plain).all()) \
+            or run["launches"]["K-W"] != 1:
+        raise AssertionError("K-W disagrees with its plain version, or the "
+                             "graft entry did not run on it")
+    timing["launches"] = run["launches"]["K-W"]
+    return timing
+
+
+def multi_gpu_phase(dev, hot, cold, timing) -> None:
+    """The multi-card forms, as shards of `dev`, so that one card
+    suffices: dryrun_multigpu(4), verify_batch on the cold and hot inputs
+    with devices=[dev, dev], asym5 and the split map through the sharded
+    quorum checker; and the kernels' times with a chunk split over two
+    streams (from `timing`)."""
+    cards = torch.cuda.device_count()
+    emit({"phase": "multi-gpu-kernel-times", "device_count": cards,
+          "shards": 2, **{k: {"ms": timing[k]["ms"],
+                               "ms_2_streams": timing[k]["ms_2_streams"]}
+                          for k in ("K-G", "K-T", "K-QF")}})
+    run = drive(lambda: graft_entry.dryrun_multigpu(4))
+    summary = run["verdicts"]
+    emit({"phase": "multi-gpu-dryrun", "device_count": cards,
+          **summary, **call_report(run)})
+    if run["launches"]["K-W"] != 4 or run["launches"]["K-QF"] < 1:
+        raise AssertionError(f"dryrun_multigpu(4): launches {run['launches']}")
+
+    shards = [dev, dev]
+    expect = N_SIGS - N_SIGS // 100                   # 64,881
+    out = {"phase": "multi-gpu-verify", "device_count": cards,
+           "shards": len(shards)}
+    for name, batch, chunk, thr, kernel, chunks in (
+            ("cold", cold, COLD_CHUNK, 1 << 62, "K-G", N_SIGS // COLD_CHUNK),
+            ("hot", hot, HOT_CHUNK, 4, "K-T", N_SIGS // HOT_CHUNK)):
+        def call():
+            return ed25519.verify_batch(*batch, chunk_size=chunk,
+                                        hot_threshold=thr, devices=shards)
+        first, steady = drive(call), drive(call)
+        out[name] = {"accepted": [int(first["verdicts"].sum()),
+                                  int(steady["verdicts"].sum())],
+                     "first_call": report(first), "steady": report(steady)}
+        # every chunk splits into two non-empty parts: each shard launched
+        if out[name]["accepted"] != [expect, expect] or \
+                steady["launches"][kernel] != len(shards) * chunks:
+            emit(out)
+            raise AssertionError(f"sharded {name} path: {out[name]}")
+    emit(out)
+
+    split_want = tuple([qmaps.nid(i) for i in side] for side in SPLIT_SIDES)
+    results = {}
+    for name, qmap in (("asym5", qmaps.asym_org_qmap(5)),
+                       ("split", qmaps.org_qmap(*SPLIT_MAP))):
+        run = drive(lambda: quorum.check_intersection_cuda(qmap,
+                                                           devices=shards))
+        res = run["verdicts"]
+        results[name] = {"intersects": res.intersects,
+                         "max_quorums_found": res.max_quorums_found,
+                         "split_equals_jax": res.split == split_want,
+                         **call_report(run)}
+    emit({"phase": "multi-gpu-quorum", "device_count": cards,
+          "shards": len(shards), **results})
+    if not results["asym5"]["intersects"] \
+            or results["asym5"]["max_quorums_found"] != ASYM5_MAX_QUORUMS \
+            or results["split"]["intersects"] \
+            or not results["split"]["split_equals_jax"] \
+            or results["split"]["max_quorums_found"] != SPLIT_MAX_QUORUMS:
+        raise AssertionError(f"sharded quorum checker: {results}")
 
 
 def smi_line(dev) -> str:
@@ -767,8 +890,16 @@ def run(dev) -> int:
     got = ed25519.verify_generic(*kg_args)
     want = ed25519.verify_forward_raw(*kg_args)
     kg_bad = int((got != want).sum())
+    # K-W's inputs: the same signatures, windows made on the host from the
+    # same s and h bytes, each signature's key row
+    kw_args = (torch.from_numpy(ed25519._windows_msb_first(
+        s[:COLD_CHUNK].cpu().numpy(), h[:COLD_CHUNK].cpu().numpy())).to(dev),
+        keys[kidx[:COLD_CHUNK].long()].contiguous(), r[:COLD_CHUNK])
     timing["K-G"] = {
         "ms": cuda_ms(lambda: ed25519.verify_generic(*kg_args), 5),
+        "ms_2_streams": two_stream_ms(dev, lambda lo, hi: ed25519.verify_generic(
+            kg_args[0][lo:hi], kg_args[1][lo:hi], kg_args[2][lo:hi], keys,
+            kg_args[4][lo:hi]), COLD_CHUNK, 5),
         "plain_ms": cuda_ms(lambda: ed25519.verify_forward_raw(*kg_args), 1),
         "bound": bound_ms(COLD_CHUNK * kg_imads(),
                           COLD_CHUNK * (96 + 4 + 1) + keys.numel()),
@@ -808,6 +939,8 @@ def run(dev) -> int:
     kt_bad = int((got != want).sum())
     timing["K-T"] = {
         "ms": cuda_ms(lambda: tables.verify_tables(*kt_args), 5),
+        "ms_2_streams": two_stream_ms(dev, lambda lo, hi: tables.verify_tables(
+            *(a[lo:hi] for a in kt_args[:4]), key_table, base), HOT_CHUNK, 5),
         "plain_ms": cuda_ms(lambda: tables.verify_tables_forward(*kt_args), 1),
         "bound": bound_ms(HOT_CHUNK * kt_imads(),
                           HOT_CHUNK * (96 + 4 + 1) + key_table.numel()
@@ -824,6 +957,8 @@ def run(dev) -> int:
     if kg_bad or kb_bad or kt_bad:
         raise AssertionError("a kernel disagrees with its plain version")
     del plain_tab
+
+    timing["K-W"] = graft_entry_phase(kw_args)
 
     # -- adversarial vectors ----------------------------------------------
     emit({"phase": "adversarial", "oracle": "libsodium" if sodium.available()
@@ -869,7 +1004,7 @@ def run(dev) -> int:
     cold_launches = first["launches"]
     if stats["generic_sigs"] != 2 * N_SIGS or cold_launches != {
             "K-B": 0, "K-T": 0, "K-G": N_SIGS // COLD_CHUNK, "K-QF": 0,
-            "K-QC": 0}:
+            "K-QC": 0, "K-W": 0}:
         raise AssertionError(f"cold path did not run on K-G: {stats} "
                              f"{cold_launches}")
     cold_runs = first, steady
@@ -883,6 +1018,9 @@ def run(dev) -> int:
     # -- quorum intersection (bench.py config 5) ----------------------------
     timing.update(quorum_kernels_vs_plain(dev))
     quorum_launches = quorum_main_paths()
+
+    # -- the multi-card forms (verify, prune, the accept-count sum) --------
+    multi_gpu_phase(dev, hot, cold, timing)
 
     # -- the kernels line -------------------------------------------------
     meta = {
@@ -899,6 +1037,9 @@ def run(dev) -> int:
         "K-QC": ("stellar_core_tpu_torch/csrc/quorum.cu",
                  "stellar_core_tpu/accel/quorum.py:195",
                  quorum_launches["K-QC"]),
+        "K-W": ("stellar_core_tpu_torch/csrc/verify_generic.cu",
+                "stellar_core_tpu/accel/ed25519.py:142",
+                timing["K-W"]["launches"]),
     }
     kernels = []
     for name, (source, replaces, count) in meta.items():

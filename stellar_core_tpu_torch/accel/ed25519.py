@@ -8,7 +8,10 @@ Counterpart of stellar_core_tpu/accel/ed25519.py.  Split of labor:
   plus the SHA-512 challenge h = SHA512(R || pk || msg) mod L and the
   hot/cold key split;
 - device: cold keys through kernel K-G (``verify_generic``, below), hot
-  keys through the per-key tables of kernels K-B and K-T (tables.py).
+  keys through the per-key tables of kernels K-B and K-T (tables.py).  With
+  several devices each chunk is split into contiguous parts, one a device,
+  and the key rows and tables are replicated (the reference's
+  ``_sharded_generic`` / ``_sharded_tables``, ed25519.py:200-227).
 
 Verdict contract: bit-identical accept/reject with libsodium
 ``crypto_sign_verify_detached`` and with the JAX package's ``verify_batch``.
@@ -22,6 +25,12 @@ table in registers and local memory, runs R <- 4R + T[w], encodes and
 compares.  Bound on the H100: integer multiply-adds (operations), about
 3.2e5 per signature; it moves 97 bytes per signature.  The per-thread table
 (2.5 KiB) spills to local memory, which stays in L1/L2.
+
+**K-W** (csrc/verify_generic.cu, ``verify_windows``) replaces
+``verify_forward`` / ``_verify_kernel`` (stellar_core_tpu/accel/ed25519.py:
+142-154), the graft entry's step: the same body as K-G (verify.cuh's
+``verify_joint_one``), with the (127, N) windows given by the caller and
+read one coalesced column a step, and an optional fused accept count.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ import numpy as np
 import torch
 
 from .. import _cuda_build
-from ..device import resolve, upload
+from ..device import Shards, parts, resolve_shards, upload
 from . import field, tables as _tables
 from .curve import D, P, PointBatch, SQRT_M1, _recover_x, double_scalarmult_w2, point_encode
 
@@ -134,6 +143,17 @@ def _small_order_vec(a: np.ndarray) -> np.ndarray:
                   axis=1)
 
 
+def _windows_msb_first(s_raw: np.ndarray, h_raw: np.ndarray) -> np.ndarray:
+    """(N, 32) LE scalar bytes x2 -> (127, N) int32 joint 2-bit windows,
+    w = 4*s_window + h_window, MSB first (scalars < 2^253 < 2^254)."""
+    sb = np.unpackbits(s_raw, axis=1, bitorder="little")
+    hb = np.unpackbits(h_raw, axis=1, bitorder="little")
+    s2 = sb[:, 0:254:2] + 2 * sb[:, 1:254:2]
+    h2 = hb[:, 0:254:2] + 2 * hb[:, 1:254:2]
+    w = (4 * s2 + h2).astype(np.int32)
+    return w[:, ::-1].T.copy()
+
+
 def verify_forward(windows, cx, cy, ct, r_bytes):
     """Windowed double-scalarmult + canonical encode + byte-compare, plain
     version (cx/cy/ct: (N, 16) limbs of -A)."""
@@ -173,6 +193,54 @@ _K_G = ("verify_generic_launch",
          ctypes.c_void_p])
 
 
+NWINDOWS = 127
+
+
+def verify_windows_plain(windows, keys, r_bytes):
+    """The windows form, plain version: ``verify_forward`` fed by the key
+    rows (N, 3, 32) uint8, the canonical encodings of (x, y, t) of -A.  A
+    window outside [0, 16) is outside the contract and raises."""
+    if windows.numel() and (int(windows.min()) < 0 or int(windows.max()) > 15):
+        raise ValueError("verify_windows: a window outside [0, 16)")
+    cx, cy, ct = (field.from_bytes(keys[:, c]) for c in range(3))
+    return verify_forward(windows, cx, cy, ct, r_bytes)
+
+
+_K_W = ("verify_windows_launch",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+
+
+def verify_windows(windows, keys, r_bytes, count=None):
+    """K-W wrapper: (N,) bool verdicts of (127, N) int32 windows, MSB
+    first, (N, 3, 32) uint8 key rows of -A and (N, 32) uint8 R bytes.  With
+    `count`, a (1,) int32 tensor, the number accepted is added to count[0]
+    (on the card by the kernel, a warp at a time)."""
+    if windows.device.type == "cpu":
+        ok = verify_windows_plain(windows, keys, r_bytes)
+        if count is not None:
+            count += ok.sum(dtype=torch.int32)
+        return ok
+    n = windows.shape[-1]
+    _cuda_build.check_tensors(
+        "verify_windows", windows.device,
+        (windows, torch.int32, (NWINDOWS, n)), (keys, torch.uint8, (n, 3, 32)),
+        (r_bytes, torch.uint8, (n, 32)),
+        *([(count, torch.int32, (1,))] if count is not None else []))
+    out = torch.empty(n, dtype=torch.bool, device=windows.device)
+    if n == 0:
+        return out
+    _cuda_build.launch("verify_generic", "K-W", _K_W, windows.device,
+                       windows.data_ptr(), keys.data_ptr(), r_bytes.data_ptr(),
+                       n, out.data_ptr(),
+                       None if count is None else count.data_ptr())
+    verify_windows.launches += 1
+    return out
+
+
+verify_windows.launches = 0
+
+
 def verify_generic(s_raw, h_raw, key_idx, keys, r_bytes):
     """K-G wrapper: (N,) bool verdicts of the generic path.  The kernel
     reads only the N signature rows and nk key rows it is given."""
@@ -210,11 +278,20 @@ class Ed25519BatchVerifier:
     Both paths ship raw bytes (96 B/sig + a key index or slot) to the
     device.  Unlike the reference, chunks are not padded: the kernels take
     any length, so there is nothing to bound recompiles for.
+
+    Devices: `devices` (a sequence; a card may repeat, and its shards then
+    run on streams of their own), else `device`, else every visible card,
+    as the reference shards over every visible device.  Each chunk is split
+    into contiguous parts, one a device; an empty part launches nothing.
+    The key rows go to every device, and every hot key's table is built by
+    K-B on every distinct device (one slot map, one table tensor a device).
     """
 
     def __init__(self, chunk_size: int = 8192, table_slots: int = 192,
-                 hot_threshold: int = 4, *, device=None):
-        self.device = resolve(device)
+                 hot_threshold: int = 4, *, device=None, devices=None):
+        self.devices = resolve_shards(device, devices)
+        self.device = self.devices[0]
+        self._shards = Shards(self.devices)
         self.chunk_size = chunk_size
         self.hot_threshold = hot_threshold
         # pk -> (3, 32) uint8 canonical encodings of (x, y, t) of -A, or
@@ -222,7 +299,8 @@ class Ed25519BatchVerifier:
         # python ints) is the dominant host prep cost, so this cache is
         # load-bearing for end-to-end throughput.
         self._pk_cache: dict = {}
-        self._tables = _tables.KeyTableCache(table_slots, device=self.device)
+        self._tables = _tables.KeyTableCache(table_slots, device=self.device,
+                                             mirrors=self.devices[1:])
         self._use_counts: dict = {}
         self.stats = {"table_sigs": 0, "generic_sigs": 0, "rejected_prep": 0,
                       "tables_built": 0}
@@ -248,8 +326,9 @@ class Ed25519BatchVerifier:
     def verify_async(self, pks: Sequence[bytes], sigs: Sequence[bytes],
                      msgs: Sequence[bytes]):
         """Dispatch-only half: host prep + kernel enqueue, no sync.  Returns
-        a collector callable; invoking it waits on a CUDA event recorded
-        after the last launch, copies the verdicts home and returns them."""
+        a collector callable; invoking it waits on the CUDA event recorded
+        after each shard's last launch, copies the verdicts home and
+        returns them."""
         n = len(pks)
         if len(sigs) != n or len(msgs) != n:
             raise ValueError("pks, sigs and msgs differ in length")
@@ -323,25 +402,28 @@ class Ed25519BatchVerifier:
         self.stats["table_sigs"] += len(hot_idx)
         self.stats["generic_sigs"] += len(cold_idx)
 
-        dev = self.device
-        cs = self.chunk_size
-        pending = []
+        shards = self._shards
+        pending = []   # (shard, signature indices, verdicts)
 
         # -- table path (hot keys): raw bytes + slot ids -----------------
         if hot_idx:
             idx = np.asarray(hot_idx)
-            s_raw = upload(sig_mat[idx, 32:], dev)
-            hh = upload(h_raw[idx], dev)
-            rb = upload(sig_mat[idx, :32], dev)
-            slots = upload(np.asarray(
-                [tabs.lookup(bytes(pks[i])) for i in hot_idx], dtype=np.int32),
-                dev)
-            base_tab = _tables.base_point_table(dev)
-            for start in range(0, len(idx), cs):
-                sl = slice(start, start + cs)
-                pending.append((idx[sl], _tables.verify_tables(
-                    s_raw[sl], hh[sl], slots[sl], rb[sl], tabs.table,
-                    base_tab)))
+            slots = np.asarray([tabs.lookup(bytes(pks[i])) for i in hot_idx],
+                               dtype=np.int32)
+            bases = {d: _tables.base_point_table(d) for d in self.devices}
+            for k, dev, sel, spans in self._plan(len(idx)):
+                with shards.on(k):
+                    s_raw = upload(sig_mat[idx[sel], 32:], dev)
+                    hh = upload(h_raw[idx[sel]], dev)
+                    rb = upload(sig_mat[idx[sel], :32], dev)
+                    sl_d = upload(slots[sel], dev)
+                    table, base = tabs.table_on(dev), bases[dev]
+                    shards.use(k, table, base)
+                    for lo, hi, at in spans:
+                        pending.append((k, idx[lo:hi], _tables.verify_tables(
+                            s_raw[at:at + hi - lo], hh[at:at + hi - lo],
+                            sl_d[at:at + hi - lo], rb[at:at + hi - lo], table,
+                            base)))
 
         # -- generic path (cold keys): de-duplicated key rows ------------
         if cold_idx:
@@ -356,60 +438,84 @@ class Ed25519BatchVerifier:
                     ki = key_of[pk] = len(key_rows)
                     key_rows.append(cache[pk])
                 kidx[j] = ki
-            keys = upload(np.stack(key_rows), dev)
-            s_raw = upload(sig_mat[idx, 32:], dev)
-            hh = upload(h_raw[idx], dev)
-            rb = upload(sig_mat[idx, :32], dev)
-            kidx_d = upload(kidx, dev)
-            for start in range(0, len(idx), cs):
-                sl = slice(start, start + cs)
-                pending.append((idx[sl], verify_generic(
-                    s_raw[sl], hh[sl], kidx_d[sl], keys, rb[sl])))
+            key_rows = np.stack(key_rows)
+            for k, dev, sel, spans in self._plan(len(idx)):
+                with shards.on(k):
+                    keys = upload(key_rows, dev)
+                    s_raw = upload(sig_mat[idx[sel], 32:], dev)
+                    hh = upload(h_raw[idx[sel]], dev)
+                    rb = upload(sig_mat[idx[sel], :32], dev)
+                    kidx_d = upload(kidx[sel], dev)
+                    for lo, hi, at in spans:
+                        pending.append((k, idx[lo:hi], verify_generic(
+                            s_raw[at:at + hi - lo], hh[at:at + hi - lo],
+                            kidx_d[at:at + hi - lo], keys,
+                            rb[at:at + hi - lo])))
 
-        done = None
-        if dev.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(dev))
+        # one event a shard, after its last launch
+        done = [shards.join(k, *(v for kk, _, v in pending if kk == k))
+                for k in range(len(shards))]
 
         def collect() -> np.ndarray:
-            if done is not None:
-                done.synchronize()
+            for event in done:
+                if event is not None:
+                    event.synchronize()
             out = np.zeros(n, dtype=bool)
-            for which, verdict in pending:
+            for _, which, verdict in pending:
                 out[which] = verdict.cpu().numpy()
             return out & ok
 
         return collect
 
+    def _plan(self, n: int):
+        """Yields (shard, device, rows, spans) for the shards with work:
+        each chunk of n rows split into contiguous parts, one a shard; rows
+        are the indices of the shard's parts, in order, and spans its parts
+        as (lo, hi, offset in rows)."""
+        cs = self.chunk_size
+        chunk_parts = [[(c + lo, c + hi) for lo, hi in parts(min(cs, n - c),
+                                                               len(self.devices))]
+                       for c in range(0, n, cs)]
+        for k, dev in enumerate(self.devices):
+            spans, at = [], 0
+            for per_shard in chunk_parts:
+                lo, hi = per_shard[k]
+                if hi > lo:
+                    spans.append((lo, hi, at))
+                    at += hi - lo
+            if spans:
+                sel = np.concatenate([np.arange(lo, hi) for lo, hi, _ in spans])
+                yield k, dev, sel, spans
 
-_verifiers: dict = {}  # (chunk, hot threshold, device) -> verifier
+
+_verifiers: dict = {}  # (chunk, hot threshold, devices) -> verifier
 
 
-def _verifier_for(chunk_size: int, hot_threshold: int,
-                  device) -> Ed25519BatchVerifier:
-    dev = resolve(device)
-    key = (chunk_size, hot_threshold, dev)
+def _verifier_for(chunk_size: int, hot_threshold: int, device,
+                  devices=None) -> Ed25519BatchVerifier:
+    devs = resolve_shards(device, devices)
+    key = (chunk_size, hot_threshold, devs)
     v = _verifiers.get(key)
     if v is None:
         v = _verifiers[key] = Ed25519BatchVerifier(
-            chunk_size, hot_threshold=hot_threshold, device=dev)
+            chunk_size, hot_threshold=hot_threshold, devices=devs)
     return v
 
 
 def verify_batch(pks, sigs, msgs, chunk_size: int = 512,
                  tail_floor: int = 256, hot_threshold: int = 4, *,
-                 device=None) -> np.ndarray:
+                 device=None, devices=None) -> np.ndarray:
     """Verdicts for (pk, sig, msg) triples.  `tail_floor` is accepted for
     call compatibility with the reference and has no effect: the port does
-    not pad its chunks."""
-    return _verifier_for(chunk_size, hot_threshold, device).verify(
+    not pad its chunks.  `device` / `devices`: see Ed25519BatchVerifier."""
+    return _verifier_for(chunk_size, hot_threshold, device, devices).verify(
         pks, sigs, msgs)
 
 
 def verify_batch_async(pks, sigs, msgs, chunk_size: int = 512,
                        tail_floor: int = 256, hot_threshold: int = 4, *,
-                       device=None):
+                       device=None, devices=None):
     """Dispatch now, sync later: returns the collector callable (see
     Ed25519BatchVerifier.verify_async).  `tail_floor` has no effect."""
-    return _verifier_for(chunk_size, hot_threshold, device).verify_async(
-        pks, sigs, msgs)
+    return _verifier_for(chunk_size, hot_threshold, device, devices
+                         ).verify_async(pks, sigs, msgs)

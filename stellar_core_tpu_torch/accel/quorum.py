@@ -31,6 +31,11 @@ Two kernels (csrc/quorum.cu), each beside its plain version here:
 A segment runs its SEG_DEPTHS depths back to back on the current stream;
 the live count, the overflow depth and the 10-int meta stay on the card,
 and the host syncs once per segment, on the meta.
+
+With several devices the checker takes the reference's mesh path
+(quorum.py:318-338, 464-494): every depth host-chunked, each prune_step
+chunk split into contiguous parts, one a device, with the map and K-QF's
+tables on each device, and the flags gathered in order.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ import numpy as np
 import torch
 
 from .. import _cuda_build
-from ..device import resolve, upload
+from ..device import Shards, parts, resolve, resolve_all, upload
 from ..herder.quorum_intersection import (
     InterruptedError_, QuorumIntersectionChecker, QuorumIntersectionResult,
     flatten_qmap, tarjan_sccs)
@@ -115,21 +120,48 @@ def satisfied(S, top_thr, top_masks, inner_thr, inner_masks):
     org's inner set recurs in every node's qset); a [P, N] matrix of pair
     uses sums the satisfied inner sets of each node.
     """
+    sets, top_of, pair_thr, uses = _distinct_sets(top_masks, inner_thr,
+                                                  inner_masks)
+    counts = popcount(S[:, None, :] & sets[None]).sum(-1)
+    n_tops = len(sets) - len(pair_thr)
+    ok = counts[:, n_tops:] >= pair_thr[None]
+    # small integers: exact in float32 (and in TF32)
+    hits = counts[:, top_of] + (ok.to(torch.float32) @ uses).to(torch.int64)
+    return hits >= top_thr[None, :]
+
+
+# satisfied's last map: (its tensors, their versions, _distinct_sets of it)
+_last_sets = None
+
+
+def _distinct_sets(top_masks, inner_thr, inner_masks):
+    """(the distinct top masks, then the distinct inner masks [T + P, W],
+    each node's index into the top masks [N], the inner masks' thresholds
+    [P], pair uses [P, N] float32) of a map.  The checker passes the same map tensors at every
+    depth and chunk, so the last map's sets are kept (the tensors held, so
+    their identity stands, and their versions compared, so an in-place
+    write is seen)."""
+    global _last_sets
+    key = (top_masks, inner_thr, inner_masks)
+    versions = tuple(t._version for t in key)
+    last = _last_sets
+    if last is not None and all(a is b for a, b in zip(last[0], key)) \
+            and last[1] == versions:
+        return last[2]
     n, k, n_words = inner_masks.shape
     tops, top_of = torch.unique(top_masks, dim=0, return_inverse=True)
-    hits = popcount(S[:, None, :] & tops[None]).sum(-1)[:, top_of]
     pairs = torch.cat([inner_masks.reshape(n * k, n_words),
                        inner_thr.reshape(n * k, 1).to(torch.int64)], 1)
     pairs, pair_of = torch.unique(pairs, dim=0, return_inverse=True)
-    ok = popcount(S[:, None, :] & pairs[None, :, :n_words]).sum(-1) \
-        >= pairs[None, :, n_words]
-    uses = torch.zeros((len(pairs), n), dtype=torch.float32, device=S.device)
-    node = torch.arange(n, device=S.device).repeat_interleave(k)
+    uses = torch.zeros((len(pairs), n), dtype=torch.float32,
+                       device=top_masks.device)
+    node = torch.arange(n, device=top_masks.device).repeat_interleave(k)
     uses.index_put_((pair_of, node), torch.ones_like(node, dtype=torch.float32),
                     accumulate=True)
-    # small integers: exact in float32 (and in TF32)
-    hits = hits + (ok.to(torch.float32) @ uses).to(torch.int64)
-    return hits >= top_thr[None, :]
+    sets = (torch.cat([tops, pairs[:, :n_words]]), top_of, pairs[:, n_words],
+            uses)
+    _last_sets = (key, versions, sets)
+    return sets
 
 
 def pack_bits(sat: torch.Tensor, n_words: int) -> torch.Tensor:
@@ -474,10 +506,12 @@ def _host(a) -> np.ndarray:
 # -- the checker ---------------------------------------------------------------
 
 class CudaQuorumIntersectionChecker:
-    """The reference's TPUQuorumIntersectionChecker (quorum.py:274-616) on
-    one card: the same verdict contract as the CPU QuorumIntersectionChecker
-    for maps in the flattened two-level (org) form of at most MAX_NODES
-    nodes (ValueError otherwise).  Runs on CUDA unless device="cpu"."""
+    """The reference's TPUQuorumIntersectionChecker (quorum.py:274-616): the
+    same verdict contract as the CPU QuorumIntersectionChecker for maps in
+    the flattened two-level (org) form of at most MAX_NODES nodes
+    (ValueError otherwise).  Runs on the current card unless device="cpu";
+    `devices`, a sequence (a card may repeat), shards every depth's
+    prune_step over them, as the reference's `mesh` does."""
 
     # Capacity buckets of the device-resident frontier: the reference's
     # ladder (quorum.py:519), kept so a map takes the same path, with the
@@ -486,8 +520,16 @@ class CudaQuorumIntersectionChecker:
 
     def __init__(self, qmap: Dict[bytes, object],
                  interrupt: Optional[Callable[[], bool]] = None,
-                 batch_size: Optional[int] = None, *, device=None):
-        self.device = resolve(device)
+                 batch_size: Optional[int] = None, *, device=None,
+                 devices=None):
+        if devices is not None:
+            if device is not None:
+                raise ValueError("pass device or devices, not both")
+            self.devices = resolve_all(devices)
+        else:
+            self.devices = (resolve(device),)
+        self.device = self.devices[0]
+        self._shards = Shards(self.devices)
         (self.node_ids, tops, top_masks, inner_thrs,
          inner_masks) = flatten_qmap(qmap)
         self.n = len(self.node_ids)
@@ -511,36 +553,56 @@ class CudaQuorumIntersectionChecker:
             for j, t in enumerate(inner_thrs[i]):
                 thr[i, j] = t
                 imask[i, j] = _masks_to_words([inner_masks[i][j]], w)[0]
-        dev = self.device
-        self.top_thr = upload(np.asarray(tops, dtype=np.int32), dev)
-        self.top_masks = upload(_masks_to_words(top_masks, w), dev)
-        self.inner_thr = upload(thr, dev)
-        self.inner_masks = upload(imask, dev)
-        # K-QF's form of the map, made once
-        self.tables = flag_tables(*self._map())
+        # the map and K-QF's form of it, made once on each device
+        self._maps = {}
+        for dev in dict.fromkeys(self.devices):
+            tensors = (upload(np.asarray(tops, dtype=np.int32), dev),
+                       upload(_masks_to_words(top_masks, w), dev),
+                       upload(thr, dev), upload(imask, dev))
+            self._maps[dev] = (tensors, flag_tables(*tensors))
+        (self.top_thr, self.top_masks, self.inner_thr,
+         self.inner_masks), self.tables = self._maps[self.device]
         # what the reference mirrors into its accel.quorum.* metrics
         self.stats = {"checks": 0, "nodes": self.n, "frontier_peak": 0,
                       "quorum_hits": 0}
         # set by check() once the quorum-bearing SCC is known
         self._scc_words = None
-        self._scc_dev = None
+        self._scc_dev = None     # on the first device
+        self._scc_on = {}        # device -> scc words there
 
     def _map(self):
         return self.top_thr, self.top_masks, self.inner_thr, self.inner_masks
 
-    # -- batched pruning on the card ----------------------------------------
+    # -- batched pruning on the card(s) --------------------------------------
     def _prune(self, children: np.ndarray, remaining_words: np.ndarray
                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Flags of `children`, batch_size rows a chunk, each chunk split
+        over the devices; a shard's flags come home once its event fires."""
         flags = np.zeros((3, len(children)), dtype=bool)
         bs = self.batch_size
-        rem = upload(remaining_words, self.device)
+        shards = self._shards
+        rems = []
+        for k in range(len(shards)):
+            with shards.on(k) as dev:
+                rems.append(upload(remaining_words, dev))
         for lo in range(0, len(children), bs):
             if self.interrupt():
                 raise InterruptedError_()
-            chunk = upload(children[lo:lo + bs], self.device)
-            out = prune_step(chunk, rem, self._scc_dev, *self._map(),
-                             tables=self.tables)
-            flags[:, lo:lo + bs] = torch.stack(out).cpu().numpy()
+            chunk = children[lo:lo + bs]
+            pending = []
+            for k, (a, b) in enumerate(parts(len(chunk), len(shards))):
+                if a == b:
+                    continue
+                with shards.on(k) as dev:
+                    (maps, tables) = self._maps[dev]
+                    out = torch.stack(prune_step(
+                        upload(chunk[a:b], dev), rems[k], self._scc_on[dev],
+                        *maps, tables=tables))
+                pending.append((lo + a, lo + b, out, shards.join(k, out)))
+            for a, b, out, event in pending:
+                if event is not None:
+                    event.synchronize()
+                flags[:, a:b] = out.cpu().numpy()
         return flags[0], flags[1], flags[2]
 
     # -- the frontier search ------------------------------------------------
@@ -597,7 +659,8 @@ class CudaQuorumIntersectionChecker:
                                    self.n_words)
         rems_all = _masks_to_words(depth_remaining[1:D + 1], self.n_words)
         self._scc_words = _masks_to_words([scc], self.n_words)[0]
-        self._scc_dev = upload(self._scc_words, self.device)
+        self._scc_on = {dev: upload(self._scc_words, dev) for dev in self._maps}
+        self._scc_dev = self._scc_on[self.device]
 
         self._quorum_hits = 0
 
@@ -623,12 +686,31 @@ class CudaQuorumIntersectionChecker:
                 node_count=n, main_scc_size=scc.bit_count(),
                 max_quorums_found=self._quorum_hits)
 
-        res = self._run_resident(bits_all, rems_all, process_witness)
+        if len(self.devices) > 1:
+            res = self._run_chunked(bits_all, rems_all, process_witness)
+        else:
+            res = self._run_resident(bits_all, rems_all, process_witness)
         if res is not None:
             return res
         return QuorumIntersectionResult(
             True, node_count=n, main_scc_size=scc.bit_count(),
             max_quorums_found=self._quorum_hits)
+
+    def _run_chunked(self, bits_all, rems_all, process_witness
+                     ) -> Optional[QuorumIntersectionResult]:
+        """Per-depth host-chunked frontier walk: the reference's path under
+        a mesh (quorum.py:478-490), taken with several devices (a resident
+        frontier's compaction would be shard-local)."""
+        frontier = np.zeros((1, self.n_words), dtype=np.int64)  # committed=0
+        for d in range(len(bits_all)):
+            if len(frontier) == 0:
+                break
+            frontier, res = self._chunked_depth(frontier, bits_all[d],
+                                                rems_all[d], process_witness)
+            self._note_frontier(len(frontier))
+            if res is not None:
+                return res
+        return None
 
     def _note_frontier(self, width: int) -> None:
         self._frontier_peak = max(self._frontier_peak, width)
@@ -738,7 +820,9 @@ class CudaQuorumIntersectionChecker:
 
 
 def check_intersection_cuda(qmap, interrupt=None, batch_size=None, *,
-                            device=None) -> QuorumIntersectionResult:
-    """One-shot API mirroring the reference's check_intersection_tpu."""
+                            device=None, devices=None
+                            ) -> QuorumIntersectionResult:
+    """One-shot API mirroring the reference's check_intersection_tpu
+    (`devices` in place of its `mesh`)."""
     return CudaQuorumIntersectionChecker(qmap, interrupt, batch_size,
-                                         device=device).check()
+                                         device=device, devices=devices).check()

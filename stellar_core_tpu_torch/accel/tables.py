@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import _cuda_build
-from ..device import upload
+from ..device import on_device, upload
 from . import field
 from .curve import BX, BY, D2, PointBatch, point_add, point_dbl, point_encode
 
@@ -213,25 +213,35 @@ _base_tables: dict = {}   # device -> (64, 16, 4, 32) base-point table
 
 def base_point_table(device) -> torch.Tensor:
     """The base point B's (64, 16, 4, 32) uint8 table on `device`, built
-    once per device (by K-B on CUDA)."""
+    once per device (by K-B on CUDA, on the device's current stream)."""
     device = torch.device(device)
     tab = _base_tables.get(device)
     if tab is None:
-        tab = build_tables_into(
-            new_table(1, device),
-            torch.zeros(1, dtype=torch.int32, device=device),
-            torch.from_numpy(base_xy()).to(device))[0]
+        with on_device(device):
+            tab = build_tables_into(
+                new_table(1, device),
+                torch.zeros(1, dtype=torch.int32, device=device),
+                torch.from_numpy(base_xy()).to(device))[0]
         _base_tables[device] = tab
     return tab
 
 
 class KeyTableCache:
-    """Device-resident per-key window tables with LRU slot reuse."""
+    """Device-resident per-key window tables with LRU slot reuse.
 
-    def __init__(self, slots: int = 192, *, device):
+    `mirrors`: further devices that hold a replica of every table, for the
+    sharded verifier.  The slot map and LRU ticks are one; each device has
+    its own table tensor, and K-B builds each replica on its own device from
+    the same key bytes (so no copy crosses between cards, and every replica
+    is the bytes the first device holds)."""
+
+    def __init__(self, slots: int = 192, *, device, mirrors=()):
         self.nslots = slots
         self.device = torch.device(device)
+        self.mirrors = tuple(d for d in dict.fromkeys(map(torch.device, mirrors))
+                             if d != self.device)
         self.table = None           # see new_table for the format
+        self.mirror_tables: dict = {}   # mirror device -> its table
         self.slot_of: dict = {}     # pk bytes -> slot
         self._tick = 0
         self._last_used: dict = {}  # pk bytes -> tick
@@ -239,6 +249,13 @@ class KeyTableCache:
     def _ensure(self):
         if self.table is None:
             self.table = new_table(self.nslots, self.device)
+            self.mirror_tables = {d: new_table(self.nslots, d)
+                                  for d in self.mirrors}
+
+    def table_on(self, device) -> torch.Tensor:
+        """The resident table on `device` (this cache's or a mirror)."""
+        device = torch.device(device)
+        return self.table if device == self.device else self.mirror_tables[device]
 
     def lookup(self, pk: bytes):
         slot = self.slot_of.get(pk)
@@ -286,6 +303,8 @@ class KeyTableCache:
             batch = kept[start:start + BUILD_K]
             xy = np.stack([np.asarray(dec)[:2] for _, dec in batch])
             slots = np.array([assigned[pk] for pk, _ in batch], dtype=np.int32)
-            build_tables_into(self.table, upload(slots, self.device),
-                              upload(xy, self.device))
+            for dev in (self.device,) + self.mirrors:
+                with on_device(dev):
+                    build_tables_into(self.table_on(dev), upload(slots, dev),
+                                      upload(xy, dev))
         return assigned

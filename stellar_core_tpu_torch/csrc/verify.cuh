@@ -1,4 +1,4 @@
-// Per-thread bodies of the three kernels: one signature (K-G, K-T) or one
+// Per-thread bodies of the kernels: one signature (K-G, K-W, K-T) or one
 // (key, window) (K-B).  The .cu files only map threads onto these, so the
 // bodies compile as host C++ as well and the CPU tests can run them.
 #pragma once
@@ -18,11 +18,35 @@ FE_FN uint8_t bytes_equal32(const uint8_t *a, const uint8_t *b) {
     return diff == 0;
 }
 
-// K-G: R' = [s]B + [h]C by 127 joint 2-bit windows, MSB first, with
-// T[4i+j] = iB + jC; then encode and compare with R.
-// key: the canonical encodings of (x, y, t) of C = -A, 96 bytes.
-FE_FN uint8_t verify_generic_one(const uint8_t *s, const uint8_t *h,
-                                 const uint8_t *r, const uint8_t *key) {
+// Where verify_joint_one finds window t of the 127 joint 2-bit windows,
+// t = 0 the most significant: K-G derives it from the s and h bytes, K-W
+// reads it from the (127, N) int32 windows the caller gives.
+struct ScalarWindows {
+    const uint8_t *s, *h;
+};
+
+FE_FN int window_at(ScalarWindows src, int t) {
+    // window j = 126 - t: bits 2j, 2j+1 of s and of h
+    int j = 126 - t, byte = j >> 2, shift = (2 * j) & 7;
+    return 4 * ((src.s[byte] >> shift) & 3) + ((src.h[byte] >> shift) & 3);
+}
+
+// One signature's column of the windows: w[t * stride], stride = N.
+struct GivenWindows {
+    const int32_t *w;
+    int64_t stride;
+};
+
+FE_FN int window_at(GivenWindows src, int t) { return src.w[t * src.stride]; }
+
+// K-G and K-W: R' = [s]B + [h]C by the 127 windows w = 4 s_j + h_j, MSB
+// first, with T[4i+j] = iB + jC; then encode and compare with R.
+// key: the canonical encodings of (x, y, t) of C = -A, 96 bytes.  A window
+// outside [0, 16) is outside the contract: the signature is rejected, and
+// the table is never read outside its 16 entries.
+template <class Windows>
+FE_FN uint8_t verify_joint_one(Windows src, const uint8_t *r,
+                               const uint8_t *key) {
     ge c;
     c.X = fe_frombytes(key);
     c.Y = fe_frombytes(key + 32);
@@ -45,17 +69,23 @@ FE_FN uint8_t verify_generic_one(const uint8_t *s, const uint8_t *h,
         for (int j = 1; j < 4; j++) tab[4 * i + j] = ge_to_pre(ge_add(b, cm[j]));
     }
     ge acc = ge_identity();
+    int bad = 0;
     FE_NO_UNROLL
-    for (int j = 126; j >= 0; j--) {
-        // window j: bits 2j, 2j+1 of s and of h
-        int byte = j >> 2, shift = (2 * j) & 7;
-        int w = 4 * ((s[byte] >> shift) & 3) + ((h[byte] >> shift) & 3);
+    for (int t = 0; t < 127; t++) {
+        int w = window_at(src, t);
+        bad |= ((unsigned)w > 15u);
         acc = ge_dbl(ge_dbl(acc));
-        acc = ge_add_pre(acc, tab[w]);
+        acc = ge_add_pre(acc, tab[w & 15]);
     }
     uint8_t enc[32];
     ge_encode(enc, acc);
-    return bytes_equal32(enc, r);
+    return !bad && bytes_equal32(enc, r);
+}
+
+// K-G: the windows derived from the raw s and h bytes.
+FE_FN uint8_t verify_generic_one(const uint8_t *s, const uint8_t *h,
+                                 const uint8_t *r, const uint8_t *key) {
+    return verify_joint_one(ScalarWindows{s, h}, r, key);
 }
 
 // K-B: window w of the table of the point with affine (x, y) = xy[0..63]:

@@ -1,7 +1,8 @@
-// K-G: the generic (cold-key) Ed25519 verify kernel, one thread per
-// signature.
+// K-G: the generic (cold-key) Ed25519 verify kernel, and K-W, its
+// windows form; one thread per signature, both on verify.cuh's
+// verify_joint_one.
 //
-// Replaces ed25519.verify_forward_raw / _verify_kernel_raw
+// K-G replaces ed25519.verify_forward_raw / _verify_kernel_raw
 // (stellar_core_tpu/accel/ed25519.py:157-184), which runs
 // curve.double_scalarmult_w2 and point_encode (curve.py:125-184).
 // Bound on the H100: integer multiply-adds.  Per signature: 127 steps of two
@@ -12,6 +13,16 @@
 // derived here) and its 16-entry joint-window table, held in precomputed
 // form; the table (2.5 KiB a thread) lives in local memory, which L1/L2
 // serve.
+//
+// K-W replaces ed25519.verify_forward / _verify_kernel
+// (stellar_core_tpu/accel/ed25519.py:142-154), the graft entry's step: the
+// caller gives the (127, N) int32 windows, MSB first, and per signature the
+// key rows of -A.  Thread i reads window t at windows[t * N + i], so a
+// warp's 32 loads of a step are one coalesced 128-byte line.  Same bound as
+// K-G (the same multiply-adds a signature); it moves 637 bytes a
+// signature.  With a count pointer it also adds the number accepted to
+// *count, one atomicAdd a warp of __popc(__ballot_sync(...)): the
+// accept-count psum of __graft_entry__.dryrun_multichip (:103-106), fused.
 #include <cuda_runtime.h>
 
 #include "verify.cuh"
@@ -44,6 +55,38 @@ extern "C" int verify_generic_launch(const void *s, const void *h,
         (const uint8_t *)s, (const uint8_t *)h, (const uint8_t *)r,
         (const int32_t *)key_idx, n, (const uint8_t *)keys, nk,
         (uint8_t *)out);
+    return (int)cudaGetLastError();
+}
+
+__global__ void verify_windows_kernel(const int32_t *__restrict__ windows,
+                                      const uint8_t *__restrict__ keys,
+                                      const uint8_t *__restrict__ r,
+                                      int64_t n, uint8_t *__restrict__ out,
+                                      int32_t *count) {
+    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    uint8_t ok = 0;
+    if (i < n) {
+        ok = verify_joint_one(GivenWindows{windows + i, n}, r + 32 * i,
+                              keys + 96 * i);
+        out[i] = ok;
+    }
+    // every lane of the warp reaches the ballot: no thread returned early,
+    // the block is whole warps, and count is the same for the whole grid
+    if (count != nullptr) {
+        unsigned votes = __ballot_sync(0xffffffffu, ok);
+        if ((threadIdx.x & 31) == 0 && votes != 0)
+            atomicAdd(count, __popc(votes));
+    }
+}
+
+extern "C" int verify_windows_launch(const void *windows, const void *keys,
+                                     const void *r, int64_t n, void *out,
+                                     void *count, void *stream) {
+    const int threads = 64;
+    unsigned blocks = (unsigned)((n + threads - 1) / threads);
+    verify_windows_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int32_t *)windows, (const uint8_t *)keys, (const uint8_t *)r,
+        n, (uint8_t *)out, (int32_t *)count);
     return (int)cudaGetLastError();
 }
 

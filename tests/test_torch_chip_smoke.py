@@ -18,7 +18,7 @@ import torch
 import chip_smoke
 from stellar_core_tpu_torch import _cuda_build
 from stellar_core_tpu_torch.accel import ed25519, tables
-from stellar_core_tpu_torch.crypto import sodium
+from stellar_core_tpu_torch.crypto import rfc8032, sodium
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -30,13 +30,16 @@ def libsodium():
 
 
 def test_python_signer_equals_libsodium(libsodium):
+    """The script signs through the port's RFC 8032 signer where libsodium
+    is missing (crypto/rfc8032.py, moved there from this script)."""
+    assert chip_smoke.Signer is rfc8032.Signer
     for i in range(4):
         seed = bytes([i * 7 + 1]) * 32
-        pk, sk = chip_smoke.py_keypair(seed)
+        pk, sk = rfc8032.keypair(seed)
         spk, ssk = sodium.sign_seed_keypair(seed)
         assert pk == spk
         for msg in (b"", b"m", bytes(range(120))):
-            assert chip_smoke.py_sign(msg, sk) == sodium.sign_detached(msg, ssk)
+            assert rfc8032.sign(msg, sk) == sodium.sign_detached(msg, ssk)
 
 
 def test_adversarial_constants_are_libsodiums(libsodium, monkeypatch):
@@ -65,6 +68,17 @@ def test_operation_counts():
     assert chip_smoke.POPC_PER_S == 132 * 16 * 1.98e9
     assert chip_smoke.bound_from(1e-6, 3.35e12) == (1000.0, "bytes")
     assert chip_smoke.bound_from(2.0, 3.35e12) == (2000.0, "operations")
+
+
+def test_windows_kernel_counts():
+    """K-W's bound: K-G's multiply-adds a signature; 637 bytes a signature
+    (127 int32 windows, 96 key bytes and R read, the verdict written) and
+    the count's 4."""
+    assert chip_smoke.kw_bytes(8192) == 8192 * 637 + 4
+    ms, by = chip_smoke.bound_ms(8192 * chip_smoke.kg_imads(),
+                                 chip_smoke.kw_bytes(8192))
+    assert by == "operations" and ms == pytest.approx(0.1399, abs=5e-5)
+    assert chip_smoke.KERNEL_WRAPPERS["K-W"] is ed25519.verify_windows
 
 
 def test_quorum_constants_are_the_jax_packages():
@@ -119,7 +133,7 @@ def test_drive_counts_one_calls_launches_and_kernel_time():
     run = chip_smoke.drive(call)
     assert _cuda_build.launch_events is None
     assert run["launches"] == {"K-B": 0, "K-T": 2, "K-G": 0, "K-QF": 0,
-                               "K-QC": 0}
+                               "K-QC": 0, "K-W": 0}
     assert run["kernel_ms"] == 0.75 and run["verdicts"].all()
     rep = chip_smoke.report(run)
     assert rep["busy_share"] == pytest.approx(0.75 / (1e3 * run["seconds"]))
@@ -127,6 +141,17 @@ def test_drive_counts_one_calls_launches_and_kernel_time():
     run = chip_smoke.drive(lambda: ed25519.verify_batch(
         [b"\x00" * 32], [b"\x00" * 64], [b""], device="cpu"))
     assert run["kernel_ms"] == 0 and set(run["launches"].values()) == {0}
+
+
+def test_union_counts_overlapping_launches_once():
+    """Launches on two streams that overlap count once in busy_ms."""
+    assert chip_smoke.union_ms([]) == 0.0
+    assert chip_smoke.union_ms([(0.0, 2.0), (1.0, 3.0)]) == 3.0
+    assert chip_smoke.union_ms([(4.0, 5.0), (0.0, 5.0), (1.0, 2.0)]) == 5.0
+    assert chip_smoke.union_ms(iter([(2.0, 3.0), (0.0, 1.0)])) == 2.0
+    rep = chip_smoke.call_report({"seconds": 0.5, "launches": {},
+                                  "kernel_ms": 4.0, "busy_ms": 3.0})
+    assert rep["busy_share"] == 0.008 and rep["busy_union_share"] == 0.006
 
 
 def test_main_without_cuda_exits_2_and_prints_nothing(monkeypatch, capsys):

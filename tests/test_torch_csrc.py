@@ -45,6 +45,7 @@ def host(tmp_path_factory):
     i64 = ctypes.c_int64
     lib.host_fe_check.argtypes = [VP, VP, ctypes.c_int, i64, VP]
     lib.host_verify_generic.argtypes = [VP, VP, VP, VP, i64, VP, i64, VP]
+    lib.host_verify_windows.argtypes = [VP, VP, VP, i64, VP]
     lib.host_build_tables.argtypes = [VP, VP, i64, VP, i64]
     lib.host_verify_tables.argtypes = [VP, VP, VP, VP, i64, VP, i64, VP, VP]
     c_int = ctypes.c_int
@@ -183,6 +184,50 @@ def test_verify_generic_body_matches_plain_and_libsodium(host):
     assert not out.any()
 
 
+def _windows_inputs():
+    """K-W's inputs for 12 signatures over 3 keys, every fifth R corrupted:
+    the (127, n) windows, each signature's key rows, R; and libsodium's
+    verdicts."""
+    pks, sigs, msgs = _signed_batch(3, 12, seed=13)
+    s, h, r, keys, kidx = _device_inputs(pks, sigs, msgs)
+    expect = [sodium.verify_detached(sg, m, pk)
+              for pk, sg, m in zip(pks, sigs, msgs)]
+    return (ed25519._windows_msb_first(s, h), np.ascontiguousarray(keys[kidx]),
+            r, expect)
+
+
+def _host_windows(host, windows, rows, r):
+    out = np.zeros(len(r), dtype=np.uint8)
+    host.host_verify_windows(_ptr(windows), _ptr(rows), _ptr(r), len(r),
+                             _ptr(out))
+    return out.astype(bool).tolist()
+
+
+def test_verify_windows_body_matches_plain_and_libsodium(host):
+    """K-W's body (K-G's, with the windows given) equals the plain
+    verify_windows and libsodium."""
+    windows, rows, r, expect = _windows_inputs()
+    plain = ed25519.verify_windows(*map(torch.from_numpy, (windows, rows, r)))
+    assert _host_windows(host, windows, rows, r) == plain.tolist() == expect
+    assert expect.count(False) == 2
+
+
+@pytest.mark.parametrize("bad", [16, -1, 1 << 30])
+def test_verify_windows_body_rejects_windows_outside_the_table(host, bad):
+    """A window outside [0, 16) rejects its signature (the table is never
+    read outside its 16 entries); the other signatures keep their verdicts.
+    The plain version refuses such windows."""
+    windows, rows, r, expect = _windows_inputs()
+    windows[40, 1] = bad
+    windows[126, 2] = bad
+    want = list(expect)
+    want[1] = want[2] = False
+    assert expect[1] and expect[2]
+    assert _host_windows(host, windows, rows, r) == want
+    with pytest.raises(ValueError, match="outside"):
+        ed25519.verify_windows(*map(torch.from_numpy, (windows, rows, r)))
+
+
 def test_build_tables_body_matches_plain(host):
     """K-B's entries equal the plain build_tables' as canonical values, for
     a key of -A and for the base point (two slots of one table)."""
@@ -288,7 +333,8 @@ def test_flag_tables_hold_each_set_once():
 
 
 @pytest.mark.parametrize("source,entry", [
-    ("verify_generic", ed25519._K_G), ("tables", tables._K_B),
+    ("verify_generic", ed25519._K_G), ("verify_generic", ed25519._K_W),
+    ("tables", tables._K_B),
     ("tables", tables._K_T), ("fe_check", field._FE_CHECK),
     ("quorum", quorum._K_QF), ("quorum", quorum._K_QC)],
     ids=lambda v: v if isinstance(v, str) else v[0])

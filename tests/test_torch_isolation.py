@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from stellar_core_tpu_torch import _cuda_build, device, testutils
+from stellar_core_tpu_torch import _cuda_build, device, graft_entry, testutils
 from stellar_core_tpu_torch.accel import ed25519, field, quorum, tables
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -27,6 +27,8 @@ PORT_MODULES = sorted(
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "stellar_core_tpu_torch.accel.ed25519" in PORT_MODULES
+    assert {"stellar_core_tpu_torch.graft_entry",
+            "stellar_core_tpu_torch.crypto.rfc8032"} <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES + ['chip_smoke']!r}:\n"
@@ -65,6 +67,36 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
     with pytest.raises(ValueError):
         device.resolve("meta")
     assert device.resolve("cpu") == torch.device("cpu")
+
+
+def test_graft_entry_and_sharded_forms_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graft_entry.entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graft_entry.dryrun_multigpu(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ed25519.Ed25519BatchVerifier(devices=["cuda", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        quorum.CudaQuorumIntersectionChecker(testutils.flat_qmap(4, 3),
+                                             devices=["cuda"] * 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device.resolve_all(["cpu", "cuda"])
+
+
+def test_windows_wrapper_refuses_non_cpu_tensors():
+    """K-W's wrapper sends a tensor off the CPU to the kernel's checks,
+    never to the plain version."""
+    m = lambda *shape, dtype=torch.uint8: torch.empty(shape, dtype=dtype,
+                                                      device="meta")
+    launches = ed25519.verify_windows.launches
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        ed25519.verify_windows(m(127, 4, dtype=torch.int32), m(4, 3, 32),
+                               m(4, 32))
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        ed25519.verify_windows(m(127, 4, dtype=torch.int32), m(4, 3, 32),
+                               m(4, 32), count=m(1, dtype=torch.int32))
+    assert ed25519.verify_windows.launches == launches
 
 
 def test_wrappers_refuse_non_cpu_tensors_instead_of_running_plain():

@@ -1,7 +1,7 @@
 // Host build of the CUDA kernels' per-thread bodies
 // (stellar_core_tpu_torch/csrc/verify.cuh, quorum.cuh) for
 // tests/test_torch_csrc.py: each entry loops over its rows the way the
-// kernel's threads map onto them in verify_generic.cu, tables.cu,
+// kernel's threads map onto them in verify_generic.cu (K-G, K-W), tables.cu,
 // fe_check.cu and quorum.cu.
 #include <vector>
 
@@ -57,6 +57,14 @@ void host_verify_generic(const uint8_t *s, const uint8_t *h, const uint8_t *r,
                  : verify_generic_one(s + 32 * i, h + 32 * i, r + 32 * i,
                                       keys + 96 * (int64_t)k);
     }
+}
+
+// K-W: the windows (127, n) int32, MSB first; per signature its key rows.
+void host_verify_windows(const int32_t *windows, const uint8_t *keys,
+                         const uint8_t *r, int64_t n, uint8_t *out) {
+    for (int64_t i = 0; i < n; i++)
+        out[i] = verify_joint_one(GivenWindows{windows + i, n}, r + 32 * i,
+                                  keys + 96 * i);
 }
 
 void host_build_tables(const uint8_t *key_xy, const int32_t *slots, int64_t k,
