@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from stellar_core_tpu_torch/csrc (nvcc, at
-first use), holds each one against its plain PyTorch version on the card,
-checks the adversarial verdicts, then drives the batch verifier's two main
+first use; K-G and K-W must show no spills and no stack that could hold
+their 16-entry tables), holds each one against its plain PyTorch version
+on the card (K-G also at a ragged 8,191 signatures and at the admission
+chunk of 2,048, which it times too), checks the adversarial verdicts, then drives the batch verifier's two main
 paths and the quorum-intersection checker at the repo's realistic sizes:
 
 * hot keys (bench.py config #2): 65,536 signatures over 64 keys, 120-byte
@@ -66,6 +68,11 @@ L = ed25519.L
 N_SIGS = 65536
 HOT_KEYS, HOT_CHUNK = 64, 16384
 COLD_KEYS, COLD_CHUNK = 4096, 8192
+# the admission pipeline's chunk (stellar_core_tpu/herder/admission.py:95),
+# and a ragged chunk whose last warp of quads is partial
+ADMISSION_CHUNK, RAGGED_N = 2048, COLD_CHUNK - 1
+# a K-G / K-W thread's 16-entry table, were it a local array
+TABLE_BYTES = 16 * 4 * 40
 FE_PAIRS = 100_000
 
 # H100 SXM int32 multiply-add rate: 132 SMs x 64 INT32 lanes x 1.98 GHz
@@ -315,10 +322,14 @@ def bound_ms(imads: float, nbytes: float):
 
 # multiply / square counts of the kernels' own code (csrc/verify.cuh)
 def kg_imads() -> int:
-    """K-G per signature: table (dbl + add + 4 to_pre + 3 x (to_pre + 3 x
-    (add + to_pre))), 127 x (2 dbl + add_pre), encode (invert + 2 mul)."""
+    """K-G per signature, the products of its quad body: table (dbl, 3
+    to_pre, add_pre, 3 x (to_pre + 3 x (add_pre + to_pre)); the identity's
+    entry takes none), 127 x (2 dbl + add_pre), encode (invert + 2 mul).
+    Each product is counted once: the exchanges between a quad's lanes and
+    the copies of the invert and of the operand sums that every lane runs
+    in step are the design's, not the work's."""
     sq = 4 + 127 * 8 + 254
-    mul = (4 + 9 + 4 + 3 * (1 + 3 * 10)) + 127 * (8 + 8) + (11 + 2)
+    mul = (4 + 3 + 8 + 3 * (1 + 3 * 9)) + 127 * (8 + 8) + (11 + 2)
     return sq * SQ_IMADS + mul * MUL_IMADS
 
 
@@ -823,6 +834,18 @@ def multi_gpu_phase(dev, hot, cold, timing) -> None:
         raise AssertionError(f"sharded quorum checker: {results}")
 
 
+def check_quad_kernels(ptxas: dict) -> None:
+    """K-G and K-W keep their 16-entry tables in shared memory: ptxas must
+    report no spills and no stack frame that could hold a table."""
+    quad = {k: v for k, v in ptxas.items()
+            if "verify_generic_kernel" in k or "verify_windows_kernel" in k}
+    if len(quad) != 2 or any(
+            v["spill_stores"] or v["spill_loads"] or v["stack"] >= TABLE_BYTES
+            for v in quad.values()):
+        raise AssertionError(f"K-G / K-W spill or hold a table on the stack: "
+                             f"{quad}")
+
+
 def smi_line(dev) -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -855,6 +878,7 @@ def run(dev) -> int:
         _cuda_build.library(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
+    check_quad_kernels(ptxas)
 
     signer = Signer()
     t0 = time.perf_counter()
@@ -890,6 +914,14 @@ def run(dev) -> int:
     got = ed25519.verify_generic(*kg_args)
     want = ed25519.verify_forward_raw(*kg_args)
     kg_bad = int((got != want).sum())
+    # a ragged n (the last warp's quads past n store nothing) and the
+    # admission chunk, against the plain version on the same rows
+    kg_sub = {}
+    for m in (RAGGED_N, ADMISSION_CHUNK):
+        sub = tuple(a[:m] for a in kg_args[:3]) + (keys, kg_args[4][:m])
+        kg_sub[m] = sub
+        kg_bad += int((ed25519.verify_generic(*sub)
+                       != ed25519.verify_forward_raw(*sub)).sum())
     # K-W's inputs: the same signatures, windows made on the host from the
     # same s and h bytes, each signature's key row
     kw_args = (torch.from_numpy(ed25519._windows_msb_first(
@@ -897,6 +929,10 @@ def run(dev) -> int:
         keys[kidx[:COLD_CHUNK].long()].contiguous(), r[:COLD_CHUNK])
     timing["K-G"] = {
         "ms": cuda_ms(lambda: ed25519.verify_generic(*kg_args), 5),
+        "ms_2048": cuda_ms(
+            lambda: ed25519.verify_generic(*kg_sub[ADMISSION_CHUNK]), 10),
+        "bound_2048": bound_ms(ADMISSION_CHUNK * kg_imads(),
+                               ADMISSION_CHUNK * (96 + 4 + 1) + keys.numel()),
         "ms_2_streams": two_stream_ms(dev, lambda lo, hi: ed25519.verify_generic(
             kg_args[0][lo:hi], kg_args[1][lo:hi], kg_args[2][lo:hi], keys,
             kg_args[4][lo:hi]), COLD_CHUNK, 5),
@@ -947,8 +983,12 @@ def run(dev) -> int:
                           + base.numel()),
         "max_abs_err": int((got.int() - want.int()).abs().max())}
     emit({"phase": "kernels-vs-plain",
-          "K-G": {"signatures": COLD_CHUNK, "mismatches": kg_bad,
-                  "imads_per_sig": kg_imads()},
+          "K-G": {"signatures": [COLD_CHUNK, RAGGED_N, ADMISSION_CHUNK],
+                  "mismatches": kg_bad, "imads_per_sig": kg_imads(),
+                  "ms": timing["K-G"]["ms"],
+                  "ms_2048": timing["K-G"]["ms_2048"],
+                  "bound_ms": timing["K-G"]["bound"][0],
+                  "bound_ms_2048": timing["K-G"]["bound_2048"][0]},
           "K-B": {"keys": kb_keys, "mismatched_entries": kb_bad,
                   "imads_per_key_needed": kb_imads(),
                   "imads_per_key_run": kb_imads_run()},

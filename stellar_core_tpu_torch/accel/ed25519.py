@@ -19,18 +19,19 @@ Verdict contract: bit-identical accept/reject with libsodium
 **K-G** (csrc/verify_generic.cu) replaces ``verify_forward_raw`` /
 ``_verify_kernel_raw`` (stellar_core_tpu/accel/ed25519.py:157-184) and the
 ``double_scalarmult_w2`` / ``point_encode`` it runs (curve.py:125-184).
-One thread per signature reads the raw s, h and R bytes and a key index,
-derives the 127 joint 2-bit windows itself, builds the 16-entry iB + jC
-table in registers and local memory, runs R <- 4R + T[w], encodes and
-compares.  Bound on the H100: integer multiply-adds (operations), about
-3.2e5 per signature; it moves 97 bytes per signature.  The per-thread table
-(2.5 KiB) spills to local memory, which stays in L1/L2.
+A quad of four lanes per signature reads the raw s, h and R bytes and a key
+index, derives the 127 joint 2-bit windows itself, builds the 16-entry
+iB + jC table in shared memory (lane k keeps coordinate k of each entry),
+runs R <- 4R + T[w] with each lane computing one of the four independent
+products of a stage (csrc/ge25519_quad.cuh), encodes and compares.  Bound
+on the H100: integer multiply-adds (operations), about 2.8e5 per
+signature; it moves 97 bytes per signature.
 
 **K-W** (csrc/verify_generic.cu, ``verify_windows``) replaces
 ``verify_forward`` / ``_verify_kernel`` (stellar_core_tpu/accel/ed25519.py:
 142-154), the graft entry's step: the same body as K-G (verify.cuh's
-``verify_joint_one``), with the (127, N) windows given by the caller and
-read one coalesced column a step, and an optional fused accept count.
+``verify_joint_quad``), with the (127, N) windows given by the caller, and
+an optional fused accept count (lane 0 of each quad votes).
 """
 
 from __future__ import annotations

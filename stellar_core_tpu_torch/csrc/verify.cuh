@@ -1,9 +1,10 @@
-// Per-thread bodies of the kernels: one signature (K-G, K-W, K-T) or one
-// (key, window) (K-B).  The .cu files only map threads onto these, so the
-// bodies compile as host C++ as well and the CPU tests can run them.
+// The kernels' bodies: one signature a quad of lanes (K-G, K-W), one
+// signature (K-T) or one (key, window) (K-B) a thread.  The .cu files only
+// map threads onto these, so the bodies compile as host C++ as well and the
+// CPU tests can run them.
 #pragma once
 
-#include "ge25519.cuh"
+#include "ge25519_quad.cuh"
 
 #define TABLE_NWIN 64
 #define TABLE_NDIG 16
@@ -18,7 +19,7 @@ FE_FN uint8_t bytes_equal32(const uint8_t *a, const uint8_t *b) {
     return diff == 0;
 }
 
-// Where verify_joint_one finds window t of the 127 joint 2-bit windows,
+// Where verify_joint_quad finds window t of the 127 joint 2-bit windows,
 // t = 0 the most significant: K-G derives it from the s and h bytes, K-W
 // reads it from the (127, N) int32 windows the caller gives.
 struct ScalarWindows {
@@ -39,53 +40,86 @@ struct GivenWindows {
 
 FE_FN int window_at(GivenWindows src, int t) { return src.w[t * src.stride]; }
 
-// K-G and K-W: R' = [s]B + [h]C by the 127 windows w = 4 s_j + h_j, MSB
-// first, with T[4i+j] = iB + jC; then encode and compare with R.
-// key: the canonical encodings of (x, y, t) of C = -A, 96 bytes.  A window
-// outside [0, 16) is outside the contract: the signature is rejected, and
-// the table is never read outside its 16 entries.
+// K-G and K-W, on a quad (ge25519_quad.cuh): R' = [s]B + [h]C by the 127
+// windows w = 4 s_j + h_j, MSB first, with T[4i+j] = iB + jC; then encode
+// and compare with R.  Every lane of the quad returns the verdict.
+// key: the canonical encodings of (x, y, t) of C = -A, 96 bytes, or null
+// for a key index outside the rows: the chain then runs on the identity,
+// nothing is read, and the signature is rejected.  A window outside
+// [0, 16) is outside the contract: the signature is rejected, and the
+// table is never read outside its 16 entries.
 template <class Windows>
-FE_FN uint8_t verify_joint_one(Windows src, const uint8_t *r,
-                               const uint8_t *key) {
-    ge c;
-    c.X = fe_frombytes(key);
-    c.Y = fe_frombytes(key + 32);
-    c.Z = fe_one();
-    c.T = fe_frombytes(key + 64);
-    ge cm[4];
-    cm[0] = ge_identity();
-    cm[1] = c;
-    cm[2] = ge_dbl(c);
-    cm[3] = ge_add(cm[2], c);
-    ge_pre tab[16];
-    for (int j = 0; j < 4; j++) tab[j] = ge_to_pre(cm[j]);
+FE_FN uint8_t verify_joint_quad(Windows src, const uint8_t *r,
+                                const uint8_t *key, QTab &tab) {
+    QFe c = key ? q_from_affine(fe_frombytes(key), fe_frombytes(key + 32),
+                                fe_frombytes(key + 64))
+                : q_identity();
+    // T[j] = jC: the identity's entry (1, 1, 2, 0) needs no product
+    fe two = fe_one();
+    two.v[0] = 2;
+    q_tab_store(tab, 0, q_sel(fe_one(), fe_one(), two, fe_zero()));
+    QFe pc = q_to_pre(c);
+    q_tab_store(tab, 1, pc);
+    QFe c2 = q_dbl(c);
+    q_tab_store(tab, 2, q_to_pre(c2));
+    q_tab_store(tab, 3, q_to_pre(q_add_pre(c2, pc)));
+    // T[4i + j] = iB + jC
+    FE_NO_UNROLL
     for (int i = 1; i < 4; i++) {
-        ge b;
-        b.X = GE_B_MULTS[i - 1][0];
-        b.Y = GE_B_MULTS[i - 1][1];
-        b.Z = fe_one();
-        b.T = GE_B_MULTS[i - 1][2];
-        tab[4 * i] = ge_to_pre(b);
-        for (int j = 1; j < 4; j++) tab[4 * i + j] = ge_to_pre(ge_add(b, cm[j]));
+        QFe b = q_from_affine(GE_B_MULTS[i - 1][0], GE_B_MULTS[i - 1][1],
+                              GE_B_MULTS[i - 1][2]);
+        q_tab_store(tab, 4 * i, q_to_pre(b));
+        FE_NO_UNROLL
+        for (int j = 1; j < 4; j++)
+            q_tab_store(tab, 4 * i + j,
+                        q_to_pre(q_add_pre(b, q_tab_load(tab, j))));
     }
-    ge acc = ge_identity();
+    QFe acc = q_identity();
     int bad = 0;
     FE_NO_UNROLL
     for (int t = 0; t < 127; t++) {
         int w = window_at(src, t);
         bad |= ((unsigned)w > 15u);
-        acc = ge_dbl(ge_dbl(acc));
-        acc = ge_add_pre(acc, tab[w & 15]);
+        acc = q_dbl(q_dbl(acc));
+        acc = q_add_pre(acc, q_tab_load(tab, w & 15));
     }
     uint8_t enc[32];
-    ge_encode(enc, acc);
-    return !bad && bytes_equal32(enc, r);
+    q_encode(enc, acc);
+    return key != nullptr && !bad && bytes_equal32(enc, r);
 }
 
-// K-G: the windows derived from the raw s and h bytes.
-FE_FN uint8_t verify_generic_one(const uint8_t *s, const uint8_t *h,
-                                 const uint8_t *r, const uint8_t *key) {
-    return verify_joint_one(ScalarWindows{s, h}, r, key);
+// The kernels' rows: quad i of the grid verifies signature i.  A quad past
+// n (the ragged last warp) runs the chain on row n - 1 and its verdict is
+// not stored: every lane must reach every exchange, so none returns early.
+FE_FN int64_t quad_row(int64_t i, int64_t n) { return i < n ? i : n - 1; }
+
+// K-G: the windows derived from the raw s and h bytes of row quad_row(i, n);
+// a key index outside [0, nk) rejects without a read.
+FE_FN uint8_t verify_generic_quad(int64_t i, int64_t n, const uint8_t *s,
+                                  const uint8_t *h, const uint8_t *r,
+                                  const int32_t *key_idx, const uint8_t *keys,
+                                  int64_t nk, QTab &tab) {
+    int64_t c = quad_row(i, n);
+    int32_t k = key_idx[c];
+    const uint8_t *key = (k >= 0 && k < nk) ? keys + 96 * (int64_t)k : nullptr;
+    return verify_joint_quad(ScalarWindows{s + 32 * c, h + 32 * c},
+                             r + 32 * c, key, tab);
+}
+
+// K-W: column quad_row(i, n) of the (127, n) windows, its key rows and R.
+FE_FN uint8_t verify_windows_quad(int64_t i, int64_t n, const int32_t *windows,
+                                  const uint8_t *keys, const uint8_t *r,
+                                  QTab &tab) {
+    int64_t c = quad_row(i, n);
+    return verify_joint_quad(GivenWindows{windows + c, n}, r + 32 * c,
+                             keys + 96 * c, tab);
+}
+
+// K-W's fused count: lane `lane` of the quad of row i votes in its warp's
+// ballot.  Only lane 0 of a quad votes, and only for a row below n, so
+// each signature counts once.
+FE_FN int quad_vote(int lane, int64_t i, int64_t n, uint8_t ok) {
+    return lane == 0 && i < n && ok;
 }
 
 // K-B: window w of the table of the point with affine (x, y) = xy[0..63]:

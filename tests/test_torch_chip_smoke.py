@@ -57,7 +57,7 @@ def test_adversarial_constants_are_libsodiums(libsodium, monkeypatch):
 def test_operation_counts():
     # per signature / per key, from the field-op counts of csrc/verify.cuh
     assert chip_smoke.kt_imads() == 254 * 55 + 1037 * 100
-    assert chip_smoke.kg_imads() == 1274 * 55 + 2155 * 100
+    assert chip_smoke.kg_imads() == 1274 * 55 + 2144 * 100
     # K-B's bound counts what the build needs (x*y once, the 252-doubling
     # chain, 142 multiplies a window); its design runs 8,064 doublings
     assert chip_smoke.kb_imads() == 1008 * 55 + (1 + 1008 + 64 * 142) * 100
@@ -77,8 +77,34 @@ def test_windows_kernel_counts():
     assert chip_smoke.kw_bytes(8192) == 8192 * 637 + 4
     ms, by = chip_smoke.bound_ms(8192 * chip_smoke.kg_imads(),
                                  chip_smoke.kw_bytes(8192))
-    assert by == "operations" and ms == pytest.approx(0.1399, abs=5e-5)
+    assert by == "operations" and ms == pytest.approx(0.1393, abs=5e-5)
     assert chip_smoke.KERNEL_WRAPPERS["K-W"] is ed25519.verify_windows
+
+
+QUAD_OK = {"stack": 16, "spill_stores": 0, "spill_loads": 0,
+           "registers": 200}
+
+
+@pytest.mark.parametrize("change,ok", [
+    ({}, True), ({"stack": 2559}, True), ({"stack": 2560}, False),
+    ({"spill_stores": 4}, False), ({"spill_loads": 4}, False),
+    (None, False)], ids=["clean", "small-stack", "table-on-stack",
+                         "spill-stores", "spill-loads", "missing"])
+def test_build_check_of_the_quad_kernels(change, ok):
+    """The build phase fails unless ptxas shows K-G and K-W with no spills
+    and no stack frame that could hold a 2,560-byte table."""
+    ptxas = {"_Z21verify_generic_kernelPKhS0_": dict(QUAD_OK),
+             "_Z21verify_windows_kernelPKi": dict(QUAD_OK),
+             "_Z19verify_tables_kernelPKh": {**QUAD_OK, "stack": 4096}}
+    if change is None:
+        del ptxas["_Z21verify_windows_kernelPKi"]
+    else:
+        ptxas["_Z21verify_windows_kernelPKi"].update(change)
+    if ok:
+        chip_smoke.check_quad_kernels(ptxas)
+    else:
+        with pytest.raises(AssertionError, match="K-G / K-W"):
+            chip_smoke.check_quad_kernels(ptxas)
 
 
 def test_quorum_constants_are_the_jax_packages():

@@ -9,6 +9,7 @@ without a card; chip_smoke.py checks the kernels themselves on the card.
 
 import ctypes
 import hashlib
+import mmap
 import random
 import re
 import shutil
@@ -45,8 +46,9 @@ def host(tmp_path_factory):
     i64 = ctypes.c_int64
     lib.host_fe_check.argtypes = [VP, VP, ctypes.c_int, i64, VP]
     lib.host_verify_generic.argtypes = [VP, VP, VP, VP, i64, VP, i64, VP]
-    lib.host_verify_windows.argtypes = [VP, VP, VP, i64, VP]
+    lib.host_verify_windows.argtypes = [VP, VP, VP, i64, VP, VP]
     lib.host_build_tables.argtypes = [VP, VP, i64, VP, i64]
+    lib.host_quad_point_ops.argtypes = [VP, i64, VP]
     lib.host_verify_tables.argtypes = [VP, VP, VP, VP, i64, VP, i64, VP, VP]
     c_int = ctypes.c_int
     lib.host_quorum_flags.argtypes = [VP, i64, c_int, VP, VP, c_int, c_int,
@@ -199,7 +201,7 @@ def _windows_inputs():
 def _host_windows(host, windows, rows, r):
     out = np.zeros(len(r), dtype=np.uint8)
     host.host_verify_windows(_ptr(windows), _ptr(rows), _ptr(r), len(r),
-                             _ptr(out))
+                             _ptr(out), None)
     return out.astype(bool).tolist()
 
 
@@ -226,6 +228,175 @@ def test_verify_windows_body_rejects_windows_outside_the_table(host, bad):
     assert _host_windows(host, windows, rows, r) == want
     with pytest.raises(ValueError, match="outside"):
         ed25519.verify_windows(*map(torch.from_numpy, (windows, rows, r)))
+
+
+SENTINEL = 0xA5
+_libc = ctypes.CDLL(None, use_errno=True)
+_libc.mprotect.argtypes = [VP, ctypes.c_size_t, ctypes.c_int]
+
+
+def _guarded(a: np.ndarray) -> np.ndarray:
+    """A copy of `a` that ends where a page with no access begins: a body
+    that read a row past n would fault instead of reading garbage."""
+    page = mmap.PAGESIZE
+    size = -(-a.nbytes // page) * page
+    buf = mmap.mmap(-1, size + page)
+    base = np.frombuffer(buf, dtype=np.uint8)
+    assert _libc.mprotect(base.ctypes.data + size, page, 0) == 0
+    out = base[size - a.nbytes:size].view(a.dtype).reshape(a.shape)
+    out[...] = a
+    return out
+
+
+def _host_generic(host, s, h, r, kidx, keys):
+    """K-G's quad body on n rows, run in whole warps; out has 8 sentinel
+    bytes past n, which no quad past n may overwrite."""
+    n = len(s)
+    out = np.full(n + 8, SENTINEL, dtype=np.uint8)
+    host.host_verify_generic(_ptr(s), _ptr(h), _ptr(r), _ptr(kidx), n,
+                             _ptr(keys), len(keys), _ptr(out))
+    assert (out[n:] == SENTINEL).all()
+    return out[:n].astype(bool)
+
+
+def _host_windows_count(host, windows, rows, r, start=0):
+    """K-W's quad body with the fused count (from `start`); as
+    _host_generic, the verdicts and the count."""
+    n = len(r)
+    out = np.full(n + 8, SENTINEL, dtype=np.uint8)
+    count = np.array([start], dtype=np.int32)
+    host.host_verify_windows(_ptr(windows), _ptr(rows), _ptr(r), n,
+                             _ptr(out), _ptr(count))
+    assert (out[n:] == SENTINEL).all()
+    return out[:n].astype(bool), int(count[0])
+
+
+@pytest.mark.parametrize("n", [1, 3, 7, 9, 33])
+@pytest.mark.parametrize("kernel", ["K-G", "K-W"])
+def test_quad_bodies_on_ragged_sizes(host, kernel, n):
+    """A quad of lanes a signature, 8 a warp: at these n the last warp is
+    partial, its quads past n run on row n - 1 (no read past the inputs:
+    each ends at a page with no access) and store nothing; every verdict
+    equals the plain version's and libsodium's."""
+    pks, sigs, msgs = _signed_batch(3, n, seed=20 + n, corrupt_every=3)
+    s, h, r, keys, kidx = _device_inputs(pks, sigs, msgs)
+    expect = [sodium.verify_detached(sg, m, pk)
+              for pk, sg, m in zip(pks, sigs, msgs)]
+    t = torch.from_numpy
+    if kernel == "K-G":
+        got = _host_generic(host, *map(_guarded, (s, h, r, kidx)), keys)
+        plain = ed25519.verify_forward_raw(t(s), t(h), t(kidx), t(keys), t(r))
+    else:
+        windows = ed25519._windows_msb_first(s, h)
+        rows = np.ascontiguousarray(keys[kidx])
+        got, _ = _host_windows_count(host, *map(_guarded, (windows, rows, r)))
+        plain = ed25519.verify_windows(t(windows), t(rows), t(r))
+    assert got.tolist() == plain.tolist() == expect
+
+
+@pytest.mark.parametrize("n", [9, 33])
+def test_windows_fused_count_counts_each_signature_once(host, n):
+    """The host emulation of K-W's per-warp ballot (lane 0 of each quad
+    below n votes, a warp adds its votes) adds ok.sum() to the count."""
+    pks, sigs, msgs = _signed_batch(2, n, seed=40 + n, corrupt_every=4)
+    s, h, r, keys, kidx = _device_inputs(pks, sigs, msgs)
+    windows = ed25519._windows_msb_first(s, h)
+    ok, count = _host_windows_count(host, windows,
+                                    np.ascontiguousarray(keys[kidx]), r,
+                                    start=7)
+    assert 0 < ok.sum() < n
+    assert count == 7 + ok.sum()
+
+
+def test_key_index_outside_the_rows_rejects_only_its_signature(host):
+    """Out-of-range key indices in the middle of a warp: those signatures
+    are rejected (their key is never read), their neighbours in the same
+    warps keep their verdicts."""
+    pks, sigs, msgs = _signed_batch(3, 33, seed=14, corrupt_every=7)
+    s, h, r, keys, kidx = _device_inputs(pks, sigs, msgs)
+    want = _host_generic(host, s, h, r, kidx, keys)
+    bad = kidx.copy()
+    bad[[10, 13, 17]] = [len(keys), -1, (1 << 31) - 1]
+    want[[10, 13, 17]] = False
+    assert _host_generic(host, s, h, r, bad, keys).tolist() == want.tolist()
+
+
+@pytest.fixture(scope="module")
+def adversarial():
+    import chip_smoke
+    return chip_smoke.adversarial_cases(chip_smoke.Signer())
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_quad_body_on_adversarial_vectors(host, adversarial, monkeypatch,
+                                          case):
+    """chip_smoke's adversarial vectors through the verifier's host prep,
+    its generic path running K-G's quad body as host C++ (checked against
+    the plain version at every call): the verdicts are libsodium's.  Then
+    every case whose key decodes, small-order and torsion-mixed keys
+    included, straight into the body (no prep gates): equal to the plain
+    version."""
+    name, cases, expected = adversarial[case]
+    t = torch.from_numpy
+    calls = []
+
+    def host_kg(s, h, kidx, keys, r):
+        got = _host_generic(host, *(a.numpy() for a in (s, h, r, kidx, keys)))
+        assert got.tolist() == ed25519.verify_forward_raw(
+            s, h, kidx, keys, r).tolist()
+        calls.append(len(got))
+        return t(got)
+
+    monkeypatch.setattr(ed25519, "verify_generic", host_kg)
+    v = ed25519.Ed25519BatchVerifier(chunk_size=32, hot_threshold=1 << 62,
+                                     device="cpu")
+    pks, sigs, msgs = (list(c) for c in zip(*cases))
+    assert v.verify(pks, sigs, msgs).tolist() == expected, name
+    assert calls or not any(expected), name   # only the prep rejected
+    keep = [(pk, sg, m) for pk, sg, m in cases if len(pk) == 32
+            and len(sg) == 64
+            and ed25519.Ed25519BatchVerifier._decode_pk(pk) is not None]
+    s, h, r, keys, kidx = _device_inputs(*(list(c) for c in zip(*keep)))
+    plain = ed25519.verify_forward_raw(t(s), t(h), t(kidx), t(keys), t(r))
+    assert _host_generic(host, s, h, r, kidx, keys).tolist() \
+        == plain.tolist(), name
+
+
+# the largest limbs of a carried element (fe25519.cuh): 2^26 - 1 even,
+# 2^25 - 1 odd, and limb 1 up to 2^25 + 2^15 - 1 after the last carry
+CARRIED_MAX = [(1 << 26) - 1, (1 << 25) + (1 << 15) - 1] + [
+    (1 << (26 - (i & 1))) - 1 for i in range(2, 10)]
+
+
+@pytest.mark.parametrize("kind", ["random", "extreme"])
+def test_quad_point_ops_match_single_thread(host, kind):
+    """q_dbl and q_add_pre (four lanes, uncarried stage operands, 32-bit
+    carries) equal ge_dbl and ge_add_pre mod p on carried limbs, among them
+    every limb at its largest, where an uncarried operand is largest."""
+    rng = np.random.default_rng(3)
+    top = np.array(CARRIED_MAX, dtype=np.int64) + 1
+    limbs = rng.integers(0, top, size=(400, 8, 10)).astype(np.uint32)
+    if kind == "extreme":
+        # every limb within 2^12 of its largest; in half the cases some
+        # elements zero instead
+        limbs = (top - 1 - rng.integers(0, 1 << 12, size=limbs.shape)
+                 ).astype(np.uint32)
+        limbs[0] = CARRIED_MAX
+        limbs[200:] *= (rng.random((200, 8, 1)) < 0.7).astype(np.uint32)
+    limbs = np.ascontiguousarray(limbs)
+    # [case][dbl, add_pre][quad, single thread][coordinate]
+    out = np.zeros((len(limbs), 2, 2, 4, 32), dtype=np.uint8)
+    host.host_quad_point_ops(_ptr(limbs), len(limbs), _ptr(out))
+    assert np.array_equal(out[:, :, 0], out[:, :, 1])
+    # and the single-thread result is the big-int one for one case
+    vals = [sum(int(l) << o for l, o in zip(e, OFFSETS)) % P
+            for e in limbs[0]]
+    x, y, z, t = vals[:4]
+    a, b = x * x % P, y * y % P
+    c, h = 2 * z * z % P, (a + b) % P
+    e, g = (h - (x + y) ** 2) % P, (a - b) % P
+    f = (c + g) % P
+    assert _ints(out[0, 0, 0]) == [e * f % P, g * h % P, f * g % P, e * h % P]
 
 
 def test_build_tables_body_matches_plain(host):

@@ -1,7 +1,7 @@
 // Host build of the CUDA kernels' per-thread bodies
-// (stellar_core_tpu_torch/csrc/verify.cuh, quorum.cuh) for
+// (stellar_core_tpu_torch/csrc/verify.cuh, ge25519_quad.cuh, quorum.cuh) for
 // tests/test_torch_csrc.py: each entry loops over its rows the way the
-// kernel's threads map onto them in verify_generic.cu (K-G, K-W), tables.cu,
+// kernel's threads (or quads of threads) map onto them in verify_generic.cu (K-G, K-W), tables.cu,
 // fe_check.cu and quorum.cu.
 #include <vector>
 
@@ -48,23 +48,63 @@ void host_fe_check(const uint8_t *a, const uint8_t *b, int op, int64_t n,
     for (int64_t i = 0; i < n; i++) fe_check_one(out + 32 * i, a + 32 * i, b + 32 * i, op);
 }
 
+// K-G and K-W run a quad of lanes a signature; here a QTab and a QFe hold
+// the quad's four lanes, and the loops run whole warps (8 quads), rows past
+// n included, as the kernels' grids do.
+#define QUADS_PER_WARP 8
+
+static int64_t warp_rows(int64_t n) {
+    return (n + QUADS_PER_WARP - 1) / QUADS_PER_WARP * QUADS_PER_WARP;
+}
+
 void host_verify_generic(const uint8_t *s, const uint8_t *h, const uint8_t *r,
                          const int32_t *key_idx, int64_t n,
                          const uint8_t *keys, int64_t nk, uint8_t *out) {
-    for (int64_t i = 0; i < n; i++) {
-        int32_t k = key_idx[i];
-        out[i] = (k < 0 || k >= nk) ? 0
-                 : verify_generic_one(s + 32 * i, h + 32 * i, r + 32 * i,
-                                      keys + 96 * (int64_t)k);
+    QTab tab;
+    for (int64_t i = 0; i < warp_rows(n); i++) {
+        uint8_t ok = verify_generic_quad(i, n, s, h, r, key_idx, keys, nk, tab);
+        if (i < n) out[i] = ok;
     }
 }
 
 // K-W: the windows (127, n) int32, MSB first; per signature its key rows.
+// With count, the per-warp ballot of the fused count: each of a warp's 32
+// lanes votes quad_vote, and the warp adds the number of votes.
 void host_verify_windows(const int32_t *windows, const uint8_t *keys,
-                         const uint8_t *r, int64_t n, uint8_t *out) {
-    for (int64_t i = 0; i < n; i++)
-        out[i] = verify_joint_one(GivenWindows{windows + i, n}, r + 32 * i,
-                                  keys + 96 * i);
+                         const uint8_t *r, int64_t n, uint8_t *out,
+                         int32_t *count) {
+    QTab tab;
+    int votes = 0;
+    for (int64_t i = 0; i < warp_rows(n); i++) {
+        uint8_t ok = verify_windows_quad(i, n, windows, keys, r, tab);
+        if (i < n) out[i] = ok;
+        for (int lane = 0; lane < 4; lane++) votes += quad_vote(lane, i, n, ok);
+        if (i % QUADS_PER_WARP == QUADS_PER_WARP - 1) {
+            if (count != nullptr) *count += votes;
+            votes = 0;
+        }
+    }
+}
+
+// The quad point operations against the single-thread ones, on raw limbs
+// (any carried values, on the curve or not: both sides compute the same
+// polynomials).  Per case 8 elements of 10 limbs: the point X, Y, Z, T and
+// an entry Y-X, Y+X, 2Z, 2dT in the quad layout; out, 16 canonical
+// encodings: q_dbl, ge_dbl, q_add_pre, ge_add_pre.
+void host_quad_point_ops(const uint32_t *limbs, int64_t n, uint8_t *out) {
+    for (int64_t c = 0; c < n; c++) {
+        fe v[8];
+        memcpy(v, limbs + 80 * c, sizeof v);
+        QFe p = q_sel(v[0], v[1], v[2], v[3]), e = q_sel(v[4], v[5], v[6], v[7]);
+        ge g{v[0], v[1], v[2], v[3]};
+        ge_pre ep{v[4], v[5], v[7], v[6]};
+        QFe qd = q_dbl(p), qa = q_add_pre(p, e);
+        ge gd = ge_dbl(g), ga = ge_add_pre(g, ep);
+        const fe got[16] = {qd.v[0], qd.v[1], qd.v[2], qd.v[3], gd.X, gd.Y,
+                            gd.Z, gd.T, qa.v[0], qa.v[1], qa.v[2], qa.v[3],
+                            ga.X, ga.Y, ga.Z, ga.T};
+        for (int k = 0; k < 16; k++) fe_tobytes(out + 32 * (16 * c + k), got[k]);
+    }
 }
 
 void host_build_tables(const uint8_t *key_xy, const int32_t *slots, int64_t k,
