@@ -4,11 +4,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from stellar_core_tpu_torch/csrc (nvcc, at
-first use; K-G and K-W must show no spills and no stack that could hold
-their 16-entry tables), holds each one against its plain PyTorch version
-on the card (K-G also at a ragged 8,191 signatures and at the admission
-chunk of 2,048, which it times too), checks the adversarial verdicts, then drives the batch verifier's two main
-paths and the quorum-intersection checker at the repo's realistic sizes:
+first use; K-G, K-W, K-T and K-B must show no spills, K-G and K-W no stack
+that could hold their 16-entry tables, K-T and K-B none that could hold a
+point), holds each one against its plain PyTorch version on the card (K-G
+also at a ragged 8,191 signatures and at the admission chunk of 2,048, K-T
+at a ragged 16,383, at 2,048 and with a slot outside the table, K-B at 32
+keys and on the base point alone), measures K-B's chain floor (252
+doublings of one warp's chain), checks the adversarial verdicts on the
+generic path and on the table path, then drives the batch verifier's two
+main paths and the quorum-intersection checker at the repo's realistic
+sizes:
 
 * hot keys (bench.py config #2): 65,536 signatures over 64 keys, 120-byte
   messages, chunk 16384, hot_threshold 4 -- key tables built by K-B, verified
@@ -71,8 +76,12 @@ COLD_KEYS, COLD_CHUNK = 4096, 8192
 # the admission pipeline's chunk (stellar_core_tpu/herder/admission.py:95),
 # and a ragged chunk whose last warp of quads is partial
 ADMISSION_CHUNK, RAGGED_N = 2048, COLD_CHUNK - 1
-# a K-G / K-W thread's 16-entry table, were it a local array
+# a K-G / K-W thread's 16-entry table, were it a local array; a point's
+# four coordinates of 10 limbs (K-T's partial sums, K-B's chain points)
 TABLE_BYTES = 16 * 4 * 40
+POINT_BYTES = 4 * 40
+# K-B's chain: 4 doublings between its 64 windows
+CHAIN_DBLS = 4 * 63
 FE_PAIRS = 100_000
 
 # H100 SXM int32 multiply-add rate: 132 SMs x 64 INT32 lanes x 1.98 GHz
@@ -204,10 +213,13 @@ def adversarial_cases(signer: Signer):
     return out
 
 
-def check_adversarial(signer: Signer, device) -> dict:
+def check_adversarial(signer: Signer, device, hot_threshold: int) -> dict:
     """Run every adversarial case through a fresh verifier on `device`;
-    raises on any verdict that differs from libsodium's."""
-    v = ed25519.Ed25519BatchVerifier(chunk_size=32, device=device)
+    raises on any verdict that differs from libsodium's.  hot_threshold
+    1 << 62 keeps every key on the generic path (K-G); 1 sends every key
+    that passes the prep to the table path (K-B, K-T)."""
+    v = ed25519.Ed25519BatchVerifier(chunk_size=32, hot_threshold=hot_threshold,
+                                     device=device)
     report = {}
     for name, cases, expected in adversarial_cases(signer):
         got = v.verify([c[0] for c in cases], [c[1] for c in cases],
@@ -334,25 +346,22 @@ def kg_imads() -> int:
 
 
 def kt_imads() -> int:
-    """K-T per signature: 128 precomputed adds, encode."""
+    """K-T per signature, the work: 128 precomputed adds, encode.  Its
+    design, a pair of lanes a signature, runs one complete add more to join
+    the two lanes' halves (9 products, under 1%), and both lanes run the
+    encode's invert in step: the bound counts the work, not the design."""
     return 254 * SQ_IMADS + (128 * 8 + 13) * MUL_IMADS
 
 
 def kb_imads() -> int:
-    """K-B per key, what building the table needs: x*y once, the
-    sequential chain of 4 doublings between windows (252), and per window
-    2 + 14 x (add + to_pre)."""
+    """K-B per key, the work, each product once: x*y, the chain of 4
+    doublings between windows (252), and per window the entry of 16^w A
+    and 14 x (precomputed add + its entry); the identity's entry takes
+    none.  The design runs just that: the chain once a key, on one warp.
+    (The reference's full add takes 9 products where the precomputed add
+    the kernel runs takes 8: 127 a window, not 142.)"""
     dbl = 4 * (tables.NWIN - 1)
-    return dbl * 4 * SQ_IMADS + (1 + dbl * 4 + tables.NWIN * (2 + 14 * 10)) * MUL_IMADS
-
-
-def kb_imads_run() -> int:
-    """K-B per key, what its one-thread-per-window design runs: thread w
-    computes x*y and doubles A 4w times itself (8,064 doublings a key, 32x
-    the chain's 252).  Not the bound: the bound counts the work, not the
-    design's redundancy."""
-    dbl = sum(4 * w for w in range(tables.NWIN))
-    return dbl * 4 * SQ_IMADS + (dbl * 4 + tables.NWIN * (1 + 2 + 14 * 10)) * MUL_IMADS
+    return dbl * 4 * SQ_IMADS + (1 + dbl * 4 + tables.NWIN * (1 + 14 * 9)) * MUL_IMADS
 
 
 def kw_bytes(n: int) -> int:
@@ -834,16 +843,26 @@ def multi_gpu_phase(dev, hot, cold, timing) -> None:
         raise AssertionError(f"sharded quorum checker: {results}")
 
 
+# the kernels on groups of lanes (quads; K-T pairs), and the stack frame
+# each must stay below
+QUAD_KERNELS = {"verify_generic_kernel": TABLE_BYTES,
+                "verify_windows_kernel": TABLE_BYTES,
+                "verify_tables_kernel": POINT_BYTES,
+                "build_tables_kernel": POINT_BYTES}
+
+
 def check_quad_kernels(ptxas: dict) -> None:
-    """K-G and K-W keep their 16-entry tables in shared memory: ptxas must
-    report no spills and no stack frame that could hold a table."""
-    quad = {k: v for k, v in ptxas.items()
-            if "verify_generic_kernel" in k or "verify_windows_kernel" in k}
-    if len(quad) != 2 or any(
-            v["spill_stores"] or v["spill_loads"] or v["stack"] >= TABLE_BYTES
-            for v in quad.values()):
-        raise AssertionError(f"K-G / K-W spill or hold a table on the stack: "
-                             f"{quad}")
+    """The kernels on groups of lanes keep their points in registers and
+    their tables in shared memory: ptxas must report each of K-G, K-W, K-T
+    and K-B with no spills, and with no stack frame that could hold K-G's
+    and K-W's 16-entry table or one of K-T's and K-B's points."""
+    quad = {name: (v, QUAD_KERNELS[kernel]) for name, v in ptxas.items()
+            for kernel in QUAD_KERNELS if kernel in name}
+    if len(quad) != len(QUAD_KERNELS) or any(
+            v["spill_stores"] or v["spill_loads"] or v["stack"] >= limit
+            for v, limit in quad.values()):
+        raise AssertionError(f"K-G / K-W / K-T / K-B missing, spilling or "
+                             f"holding a table or point on the stack: {quad}")
 
 
 def smi_line(dev) -> str:
@@ -941,25 +960,46 @@ def run(dev) -> int:
                           COLD_CHUNK * (96 + 4 + 1) + keys.numel()),
         "max_abs_err": int((got.int() - want.int()).abs().max())}
 
-    # K-B on 32 keys, compared as canonical values
+    # K-B on 32 keys and on the base point alone, byte for byte against the
+    # plain build (both sides canonical 32-byte encodings)
     s, h, r, slots, hot_keys = device_rows(*hot, dev)
     xy = hot_keys[:tables.BUILD_K, :2].contiguous()
     kb_keys = xy.shape[0]
     kb_slots = torch.arange(kb_keys, dtype=torch.int32, device=dev)
     kb_table = tables.new_table(kb_keys, dev)
     tables.build_tables_into(kb_table, kb_slots, xy)
-    # both sides as canonical 32-byte encodings: equal bytes, equal values
-    plain_tab = field.to_bytes(tables.build_tables(
-        field.from_bytes(xy[:, 0]), field.from_bytes(xy[:, 1])))
-    diff = (kb_table.int() - plain_tab.int()).abs()
-    kb_bad = int((diff.amax(dim=-1) > 0).sum())
+
+    def plain_build(key_xy):
+        return field.to_bytes(tables.build_tables(
+            field.from_bytes(key_xy[:, 0]), field.from_bytes(key_xy[:, 1])))
+
+    diff = (kb_table.int() - plain_build(xy).int()).abs()
+    kb_bad = int((diff > 0).sum())
+    b_xy = torch.from_numpy(tables.base_xy()).to(dev)
+    b_slot = torch.zeros(1, dtype=torch.int32, device=dev)
+    b_table = tables.build_tables_into(tables.new_table(1, dev), b_slot, b_xy)
+    kb_base_bad = int((b_table != plain_build(b_xy)).sum())
+    base = tables.base_point_table(dev)
+    kb_base_bad += int((base != b_table[0]).sum())
     timing["K-B"] = {
-        "ms": cuda_ms(lambda: tables.build_tables_into(kb_table, kb_slots, xy), 3),
-        "plain_ms": cuda_ms(lambda: tables.build_tables(
-            field.from_bytes(xy[:, 0]), field.from_bytes(xy[:, 1])), 1),
+        "ms": cuda_ms(lambda: tables.build_tables_into(kb_table, kb_slots, xy), 5),
+        "ms_1": cuda_ms(lambda: tables.build_tables_into(b_table, b_slot, b_xy), 5),
+        "plain_ms": cuda_ms(lambda: plain_build(xy), 1),
         "bound": bound_ms(kb_keys * kb_imads(),
                           kb_table.numel() + xy.numel() + 4 * kb_keys),
         "max_abs_err": int(diff.max())}
+    del diff
+
+    # K-B's chain floor: one warp's chain of q_dbl (the check kernel
+    # dbl_chain, held against the plain chain), timed at 252 and 4 x 252
+    # doublings; the difference is 756 doublings' latency in a row
+    one_key = xy[:1]
+    chain_bad = sum(int((tables.dbl_chain(one_key, k) != tables.dbl_chain_plain(
+        one_key, k)).sum()) for k in (CHAIN_DBLS, 4 * CHAIN_DBLS))
+    chain_ms = cuda_ms(lambda: tables.dbl_chain(one_key, CHAIN_DBLS), 20)
+    chain4_ms = cuda_ms(lambda: tables.dbl_chain(one_key, 4 * CHAIN_DBLS), 20)
+    dbl_ms = (chain4_ms - chain_ms) / (3 * CHAIN_DBLS)
+    timing["K-B"]["chain_floor_ms"] = CHAIN_DBLS * dbl_ms
 
     # K-T at the hot path's chunk shape, on a table built by K-B; the plain
     # version reads the same bytes
@@ -967,20 +1007,42 @@ def run(dev) -> int:
     tables.build_tables_into(
         key_table, torch.arange(HOT_KEYS, dtype=torch.int32, device=dev),
         hot_keys[:, :2].contiguous())
-    base = tables.base_point_table(dev)
     kt_args = (s[:HOT_CHUNK], h[:HOT_CHUNK], slots[:HOT_CHUNK], r[:HOT_CHUNK],
                key_table, base)
     got = tables.verify_tables(*kt_args)
     want = tables.verify_tables_forward(*kt_args)
     kt_bad = int((got != want).sum())
+    # a ragged n (the last warp's pairs past n store nothing) and the
+    # admission chunk, against the plain version on the same rows
+    kt_sub = {}
+    for m in (HOT_CHUNK - 1, ADMISSION_CHUNK):
+        kt_sub[m] = tuple(a[:m] for a in kt_args[:4]) + (key_table, base)
+        kt_bad += int((tables.verify_tables(*kt_sub[m])
+                       != tables.verify_tables_forward(*kt_sub[m])).sum())
+    # slots outside the table: those signatures rejected, no other moved
+    out_rows = [5, 9]
+    bad_slots = slots[:HOT_CHUNK].clone()
+    bad_slots[out_rows] = torch.tensor([HOT_KEYS, -1], dtype=torch.int32,
+                                       device=dev)
+    got_out = tables.verify_tables(kt_args[0], kt_args[1], bad_slots,
+                                   *kt_args[3:])
+    keep = torch.ones(HOT_CHUNK, dtype=torch.bool, device=dev)
+    keep[out_rows] = False
+    slot_rejects = bool(want[out_rows].all()) and not bool(got_out[out_rows].any())
+    kt_bad += int((got_out[keep] != want[keep]).sum())
     timing["K-T"] = {
         "ms": cuda_ms(lambda: tables.verify_tables(*kt_args), 5),
+        "ms_2048": cuda_ms(
+            lambda: tables.verify_tables(*kt_sub[ADMISSION_CHUNK]), 10),
         "ms_2_streams": two_stream_ms(dev, lambda lo, hi: tables.verify_tables(
             *(a[lo:hi] for a in kt_args[:4]), key_table, base), HOT_CHUNK, 5),
         "plain_ms": cuda_ms(lambda: tables.verify_tables_forward(*kt_args), 1),
         "bound": bound_ms(HOT_CHUNK * kt_imads(),
                           HOT_CHUNK * (96 + 4 + 1) + key_table.numel()
                           + base.numel()),
+        "bound_2048": bound_ms(ADMISSION_CHUNK * kt_imads(),
+                               ADMISSION_CHUNK * (96 + 4 + 1)
+                               + key_table.numel() + base.numel()),
         "max_abs_err": int((got.int() - want.int()).abs().max())}
     emit({"phase": "kernels-vs-plain",
           "K-G": {"signatures": [COLD_CHUNK, RAGGED_N, ADMISSION_CHUNK],
@@ -989,20 +1051,41 @@ def run(dev) -> int:
                   "ms_2048": timing["K-G"]["ms_2048"],
                   "bound_ms": timing["K-G"]["bound"][0],
                   "bound_ms_2048": timing["K-G"]["bound_2048"][0]},
-          "K-B": {"keys": kb_keys, "mismatched_entries": kb_bad,
-                  "imads_per_key_needed": kb_imads(),
-                  "imads_per_key_run": kb_imads_run()},
-          "K-T": {"signatures": HOT_CHUNK, "mismatches": kt_bad,
-                  "imads_per_sig": kt_imads()}})
-    if kg_bad or kb_bad or kt_bad:
+          "K-B": {"keys": kb_keys, "mismatched_bytes": kb_bad,
+                  "base_table_mismatched_bytes": kb_base_bad,
+                  "imads_per_key": kb_imads(), "ms": timing["K-B"]["ms"],
+                  "ms_1": timing["K-B"]["ms_1"],
+                  "bound_ms": timing["K-B"]["bound"][0],
+                  "chain_check_mismatched_bytes": chain_bad,
+                  "chain_ms_252": chain_ms, "chain_ms_1008": chain4_ms,
+                  "dbl_latency_us": 1e3 * dbl_ms,
+                  "chain_floor_ms": timing["K-B"]["chain_floor_ms"]},
+          "K-T": {"signatures": [HOT_CHUNK, HOT_CHUNK - 1, ADMISSION_CHUNK],
+                  "mismatches": kt_bad, "slot_outside_rejects": slot_rejects,
+                  "imads_per_sig": kt_imads(), "ms": timing["K-T"]["ms"],
+                  "ms_2048": timing["K-T"]["ms_2048"],
+                  "bound_ms": timing["K-T"]["bound"][0],
+                  "bound_ms_2048": timing["K-T"]["bound_2048"][0]}})
+    if kg_bad or kb_bad or kb_base_bad or chain_bad or kt_bad \
+            or not slot_rejects:
         raise AssertionError("a kernel disagrees with its plain version")
-    del plain_tab
 
     timing["K-W"] = graft_entry_phase(kw_args)
 
-    # -- adversarial vectors ----------------------------------------------
-    emit({"phase": "adversarial", "oracle": "libsodium" if sodium.available()
-          else "fixed verdicts", "cases": check_adversarial(signer, dev)})
+    # -- adversarial vectors, on the generic path and on the table path ---
+    oracle = "libsodium" if sodium.available() else "fixed verdicts"
+    emit({"phase": "adversarial", "oracle": oracle,
+          "cases": check_adversarial(signer, dev, 1 << 62)})
+    table_path = {"K-B": tables.build_tables_into, "K-T": tables.verify_tables,
+                  "K-G": ed25519.verify_generic}
+    before = {k: fn.launches for k, fn in table_path.items()}
+    cases = check_adversarial(signer, dev, 1)
+    launched = {k: fn.launches - before[k] for k, fn in table_path.items()}
+    emit({"phase": "adversarial-table-path", "oracle": oracle,
+          "hot_threshold": 1, "cases": cases, "launches": launched})
+    if launched["K-B"] < 1 or launched["K-T"] < 1 or launched["K-G"]:
+        raise AssertionError(f"the table-path vectors did not run on K-B and "
+                             f"K-T alone: {launched}")
 
     # -- main path, hot keys (bench config #2) -----------------------------
     # through the module-level entry that catchup and admission call, with

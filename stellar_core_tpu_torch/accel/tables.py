@@ -6,25 +6,30 @@ for the 64 4-bit windows of the scalar, in precomputed-add form
 (Y-X, Y+X, 2d*T, 2Z).  Verification then needs no point doublings: 64 adds
 from the base-point table for [s]B and 64 from the key's table for [h](-A).
 
-Two kernels, each beside its plain version (csrc/tables.cu):
+Two kernels, each beside its plain version (csrc/tables.cu), K-B on quads
+of four lanes, K-T on pairs (csrc/ge25519_quad.cuh):
 
 * **K-B** (``build_tables_into``) replaces ``tables.build_tables`` /
-  ``_build_jit`` (stellar_core_tpu/accel/tables.py:51-106).  One thread per
-  (key, window): thread w doubles A 4w times (the same doubling chain the
-  reference's window scan runs, so every stored coordinate equals the
-  reference's mod p), then emits the 16 multiples by 14 point adds.  Bound
-  on the H100: integer multiply-adds (operations), about 1.07M per key
-  for the build itself.  The design runs 5.9M: its threads double A
-  8,064 times a key, 32x the 252 of a sequential chain, and the threads
-  of low windows idle while window 63 runs its 252 doublings.  That buys
-  parallelism across windows at the cost of redundant work, which matters
-  only when many keys turn hot at once.
+  ``_build_jit`` (stellar_core_tpu/accel/tables.py:51-106).  A block a
+  key: one warp runs the key's doubling chain once (252 doublings with the
+  quad's q_dbl: the reference's window scan, so every stored coordinate
+  equals the reference's mod p) into shared memory, then quad w makes
+  window w's 16 entries by 14 adds of 16^w A, each lane storing one
+  coordinate.  Bound on the H100: integer multiply-adds (operations),
+  about 1.07M a key for the build; but the chain's 252 doublings run one
+  after another, so a launch takes at least 252 latencies of one doubling
+  (the chain floor, which chip_smoke.py measures with ``dbl_chain``).  The
+  old design, a thread a (key, window), ran the chain 32 times over.
 * **K-T** (``verify_tables``) replaces ``verify_tables_forward`` /
-  ``_verify_tables_jit`` (:109-150).  One thread per signature walks the 64
-  windows (two 8-multiply precomputed adds each), then encodes and compares
-  with R.  Bound: integer multiply-adds, about 1.2e5 per signature; the
-  entry reads (128 B each, 16 KiB per signature) hit L2, since 64 keys'
-  tables (8 MiB) and the base table fit in its 50 MB.
+  ``_verify_tables_jit`` (:109-150).  A pair of lanes a signature: lane k
+  adds the entries of the windows w = k (mod 2) (64 precomputed adds), one
+  shuffle round and a complete add join the two halves, and each lane
+  encodes its copy and compares with R.  Bound: integer multiply-adds,
+  about 1.2e5 a signature; the entry reads (128 B each, 16 KiB a
+  signature) hit L2, since 64 keys' tables (8 MiB) and the base table fit
+  in its 50 MB.  A pair a signature gives the hot chunk twice the warps of
+  one thread a signature, which waited on each add's chain of dependent
+  products; four lanes a signature lost on the card (PERF.md).
 
 The resident key table has one format on every device: (slots, 64, 16, 4,
 32) uint8, each coordinate of an entry its canonical 32-byte encoding.  The
@@ -75,13 +80,13 @@ def build_tables(ax, ay):
             [torch.stack(m.tree(), dim=1) for m in mults], dim=1))
         s = point_dbl(point_dbl(point_dbl(point_dbl(s))))
     rows = torch.stack(rows, dim=1)      # (K, 64, 16, 4, 16) as (X, Y, Z, T)
-    ex, ey, ez, et = (rows[:, :, :, c] for c in range(4))
-    return torch.stack([
-        field.fe_sub(ey, ex),
-        field.fe_add(ey, ex),
-        field.fe_mul(et, d2),
-        field.fe_add(ez, ez),
-    ], dim=3)
+    return _precomputed(*(rows[:, :, :, c] for c in range(4)), d2, dim=3)
+
+
+def _precomputed(X, Y, Z, T, d2, dim):
+    """(Y-X, Y+X, 2d*T, 2Z) stacked along `dim`."""
+    return torch.stack([field.fe_sub(Y, X), field.fe_add(Y, X),
+                        field.fe_mul(T, d2), field.fe_add(Z, Z)], dim=dim)
 
 
 def point_add_precomp(p: PointBatch, entry) -> PointBatch:
@@ -200,6 +205,50 @@ def verify_tables(s_raw, h_raw, slots, r_bytes, key_table, base_table):
 
 
 verify_tables.launches = 0
+
+
+def dbl_chain_plain(key_xy, steps: int):
+    """`steps` doublings of each point with affine encodings `key_xy`
+    (K, 2, 32) uint8: (K, 4, 32) uint8, the canonical bytes of the result's
+    precomputed form, in a table entry's order."""
+    ax = field.from_bytes(key_xy[:, 0])
+    ay = field.from_bytes(key_xy[:, 1])
+    one = torch.zeros_like(ax)
+    one[:, 0] = 1
+    p = PointBatch(ax, ay, one, field.fe_mul(ax, ay))
+    for _ in range(steps):
+        p = point_dbl(p)
+    d2 = field.fe_const(D2, key_xy.device)
+    return field.to_bytes(_precomputed(p.X, p.Y, p.Z, p.T, d2, dim=1))
+
+
+_DBL_CHAIN = ("dbl_chain_launch",
+              [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+               ctypes.c_void_p, ctypes.c_void_p])
+
+
+def dbl_chain(key_xy, steps: int):
+    """Wrapper of the check kernel dbl_chain (csrc/fe_check.cu; not a port
+    of a TPU kernel): ``dbl_chain_plain`` on the card, each point's chain
+    on a quad of lanes with K-B's doubling.  On one point it is one warp's
+    chain of ``steps`` doublings: chip_smoke.py times it for K-B's chain
+    floor."""
+    if key_xy.device.type == "cpu":
+        return dbl_chain_plain(key_xy, steps)
+    k = key_xy.shape[0]
+    _cuda_build.check_tensors("dbl_chain", key_xy.device,
+                              (key_xy, torch.uint8, (k, 2, 32)))
+    if steps < 0:
+        raise ValueError(f"dbl_chain: steps {steps} < 0")
+    out = torch.empty((k, 4, 32), dtype=torch.uint8, device=key_xy.device)
+    if k:
+        _cuda_build.launch("fe_check", "dbl_chain", _DBL_CHAIN, key_xy.device,
+                           key_xy.data_ptr(), k, steps, out.data_ptr())
+        dbl_chain.launches += 1
+    return out
+
+
+dbl_chain.launches = 0
 
 
 def base_xy() -> np.ndarray:

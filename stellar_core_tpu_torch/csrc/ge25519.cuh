@@ -57,16 +57,6 @@ FE_FN ge ge_identity() {
     return r;
 }
 
-// affine (x, y) -> extended (x, y, 1, x*y)
-FE_FN ge ge_from_affine(const fe &x, const fe &y) {
-    ge r;
-    r.X = x;
-    r.Y = y;
-    r.Z = fe_one();
-    r.T = fe_mul(x, y);
-    return r;
-}
-
 FE_FN ge ge_dbl(const ge &p) {
     fe A = fe_sq(p.X);
     fe B = fe_sq(p.Y);
@@ -102,15 +92,6 @@ FE_FN ge ge_add(const ge &p, const ge &q) {
     return r;
 }
 
-FE_FN ge_pre ge_to_pre(const ge &p) {
-    ge_pre e;
-    e.ymx = fe_sub(p.Y, p.X);
-    e.ypx = fe_add(p.Y, p.X);
-    e.t2d = fe_mul(p.T, GE_D2);
-    e.z2 = fe_add(p.Z, p.Z);
-    return e;
-}
-
 FE_FN ge ge_add_pre(const ge &p, const ge_pre &e) {
     fe A = fe_mul(fe_sub(p.Y, p.X), e.ymx);
     fe B = fe_mul(fe_add(p.Y, p.X), e.ypx);
@@ -138,16 +119,9 @@ FE_FN void ge_encode(uint8_t *s, const ge &p) {
 }
 
 // A table entry as stored: the canonical 32-byte encodings of (Y-X, Y+X,
-// 2d*T, 2Z), 128 bytes, 16-byte aligned.  The limb layout stays inside the
-// kernels; the plain versions read the same bytes.
+// 2d*T, 2Z) in that order, 128 bytes, 16-byte aligned.  The limb layout
+// stays inside the kernels; the plain versions read the same bytes.
 #define GE_PRE_BYTES 128
-
-FE_FN void ge_pre_store(uint8_t *dst, const ge_pre &e) {
-    fe_store(dst, e.ymx);
-    fe_store(dst + 32, e.ypx);
-    fe_store(dst + 64, e.t2d);
-    fe_store(dst + 96, e.z2);
-}
 
 FE_FN ge_pre ge_pre_load(const uint8_t *src) {
     ge_pre e;

@@ -1,8 +1,9 @@
 // Edwards25519 point arithmetic over a quad: four adjacent lanes of a warp
-// work one point, lane k holding its coordinate k.
+// work one point, lane k holding its coordinate k (K-G, K-W, K-B); and
+// over a pair of lanes, each holding a whole point (K-T, below).
 //
-// The complete a = -1 formulas of ge25519.cuh (ge_dbl, ge_add_pre,
-// ge_to_pre) come as two stages of four independent products: doubling
+// The complete a = -1 formulas of ge25519.cuh (ge_dbl, ge_add_pre, and the
+// precomputed form) come as two stages of four independent products: doubling
 // X^2, Y^2, Z^2, (X+Y)^2, then EF, GH, FG, EH; a precomputed add
 // (Y-X)ymx, (Y+X)ypx, Z*2Z', T*2dT', then the same four.  That is the
 // four-way parallel form of Hisil, Wong, Carter and Dawson, "Twisted
@@ -173,13 +174,20 @@ FE_FN QFe q_swap1(const QFe &a) {
 
 FE_FN QFe q_identity() { return q_sel(fe_zero(), fe_one(), fe_one(), fe_zero()); }
 
+// The identity's precomputed entry (1, 1, 2, 0), which needs no product.
+FE_FN QFe q_identity_pre() {
+    fe two = fe_one();
+    two.v[0] = 2;
+    return q_sel(fe_one(), fe_one(), two, fe_zero());
+}
+
 // affine (x, y) with t = x*y given -> extended (x, y, 1, t)
 FE_FN QFe q_from_affine(const fe &x, const fe &y, const fe &t) {
     return q_sel(x, y, fe_one(), t);
 }
 
-// (Y-X, Y+X, 2Z, 2d*T), as ge_to_pre (carried: the table's entries are a
-// product's right operand, below)
+// (Y-X, Y+X, 2Z, 2d*T), the precomputed form of the plain build_tables
+// (carried: the table's entries are a product's right operand, below)
 FE_FN QFe q_to_pre(const QFe &p) {
     fe x = q_get(p, 0), y = q_get(p, 1);
     return q_sel(fe_sub(y, x), fe_add(y, x), q_add(p, p), q_mul(p, GE_D2));
@@ -246,12 +254,96 @@ FE_FN void q_encode(uint8_t *s, const QFe &p) {
     s[31] |= (uint8_t)(fe_isodd(x) << 7);
 }
 
-// A quad's 16 precomputed entries, lane k keeping coordinate k of each.
-// On the card the table is shared memory laid out [entry][limb][thread]:
-// thread t's limb l of entry e is p[(10 e + l) stride] with p = base + t,
-// stride = the block's threads.  A warp's load of one limb is then 32
-// consecutive words whatever entry each quad takes: no bank conflict.
-// Each thread reads only what it wrote itself, so no barrier is needed.
+// Where lane k's coordinate of a precomputed entry goes in the resident
+// table's 128 bytes: the stored order is Y-X, Y+X, 2d*T, 2Z (ge25519.cuh),
+// the quad's lanes hold Y-X, Y+X, 2Z, 2d*T.
+#define Q_PRE_OFFSET(k) ((k) == 2 ? 96 : (k) == 3 ? 64 : 32 * (k))
+
+// An entry e (q_to_pre) stored in that order: each lane the canonical bytes
+// of its own coordinate.
+FE_FN void q_pre_store(uint8_t *dst, const QFe &e) {
+#ifdef __CUDACC__
+    fe_store(dst + Q_PRE_OFFSET(q_lane()), e.v);
+#else
+    for (int k = 0; k < 4; k++) fe_store(dst + Q_PRE_OFFSET(k), e.v[k]);
+#endif
+}
+
+// Whole points, one a lane of a pair (K-T): lanes 2j and 2j + 1 of a warp.
+// Each lane runs the single-thread code of ge25519.cuh on a point of its
+// own; the pair then joins the two.  A PGe is this lane's point on the card
+// and the pair's two points on the host; in P_GE_LANEWISE, k is the lane's
+// index in the pair (0 or 1) on both.
+#ifdef __CUDACC__
+struct PGe {
+    ge v;
+};
+
+FE_FN int p_lane() { return threadIdx.x & 1; }
+FE_FN const ge &pg(const PGe &a, int) { return a.v; }
+#define P_GE_LANEWISE(expr)           \
+    PGe r;                            \
+    {                                 \
+        const int k = p_lane();       \
+        r.v = (expr);                 \
+    }                                 \
+    return r;
+
+FE_FN fe fe_shfl_xor1(const fe &a) {
+    fe r;
+    FE_UNROLL
+    for (int l = 0; l < FE_NLIMB; l++)
+        r.v[l] = __shfl_xor_sync(0xffffffffu, a.v[l], 1, 2);
+    return r;
+}
+#else
+struct PGe {
+    ge v[2];
+};
+
+FE_FN const ge &pg(const PGe &a, int k) { return a.v[k]; }
+#define P_GE_LANEWISE(expr)                          \
+    PGe r;                                           \
+    for (int k = 0; k < 2; k++) r.v[k] = (expr);     \
+    return r;
+#endif
+
+FE_FN PGe p_ge_add(const PGe &a, const PGe &b) { P_GE_LANEWISE(ge_add(pg(a, k), pg(b, k))) }
+
+// Lane k gets the other lane's point: 40 shuffles.
+FE_FN PGe p_ge_swap(const PGe &a) {
+    PGe r;
+#ifdef __CUDACC__
+    r.v.X = fe_shfl_xor1(a.v.X);
+    r.v.Y = fe_shfl_xor1(a.v.Y);
+    r.v.Z = fe_shfl_xor1(a.v.Z);
+    r.v.T = fe_shfl_xor1(a.v.T);
+#else
+    for (int k = 0; k < 2; k++) r.v[k] = a.v[k ^ 1];
+#endif
+    return r;
+}
+
+// The point of the pair's lane 0 (the lane that stores the pair's
+// result); on the card every lane takes its own copy, which equals lane
+// 0's mod p once the pair has joined its points.
+FE_FN const ge &p_lane0(const PGe &a) {
+#ifdef __CUDACC__
+    return a.v;
+#else
+    return a.v[0];
+#endif
+}
+
+// A quad's 16 precomputed entries, lane k keeping coordinate k of each
+// (K-G, K-W), or K-B's 64 chain points.  On the card the table is shared
+// memory laid out [entry][limb][thread]: thread t's limb l of entry e is
+// p[(10 e + l) stride] with p = base + t, stride = the block's threads.  A
+// warp's load of one limb is then 32 consecutive words whatever entry each
+// quad takes: no bank conflict, and each thread reads only what it wrote
+// itself, so no barrier is needed.  K-B's chain takes base + lane and
+// stride 4 instead: every quad's lane k reads, after a barrier, what quad
+// 0's lane k wrote.
 #ifdef __CUDACC__
 struct QTab {
     uint32_t *p;
@@ -271,7 +363,7 @@ FE_FN QFe q_tab_load(const QTab &t, int e) {
 }
 #else
 struct QTab {
-    QFe e[16];
+    QFe e[64];   // K-B's chain; K-G's table uses the first 16
 };
 
 FE_FN void q_tab_store(QTab &t, int e, const QFe &a) { t.e[e] = a; }

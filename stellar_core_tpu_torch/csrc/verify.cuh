@@ -1,5 +1,5 @@
-// The kernels' bodies: one signature a quad of lanes (K-G, K-W), one
-// signature (K-T) or one (key, window) (K-B) a thread.  The .cu files only
+// The kernels' bodies, on groups of lanes: a signature a quad (K-G, K-W) or
+// a pair (K-T), a key's chain and then a window a quad (K-B).  The .cu files only
 // map threads onto these, so the bodies compile as host C++ as well and the
 // CPU tests can run them.
 #pragma once
@@ -54,10 +54,8 @@ FE_FN uint8_t verify_joint_quad(Windows src, const uint8_t *r,
     QFe c = key ? q_from_affine(fe_frombytes(key), fe_frombytes(key + 32),
                                 fe_frombytes(key + 64))
                 : q_identity();
-    // T[j] = jC: the identity's entry (1, 1, 2, 0) needs no product
-    fe two = fe_one();
-    two.v[0] = 2;
-    q_tab_store(tab, 0, q_sel(fe_one(), fe_one(), two, fe_zero()));
+    // T[j] = jC
+    q_tab_store(tab, 0, q_identity_pre());
     QFe pc = q_to_pre(c);
     q_tab_store(tab, 1, pc);
     QFe c2 = q_dbl(c);
@@ -88,9 +86,10 @@ FE_FN uint8_t verify_joint_quad(Windows src, const uint8_t *r,
     return key != nullptr && !bad && bytes_equal32(enc, r);
 }
 
-// The kernels' rows: quad i of the grid verifies signature i.  A quad past
-// n (the ragged last warp) runs the chain on row n - 1 and its verdict is
-// not stored: every lane must reach every exchange, so none returns early.
+// The kernels' rows: quad i (K-T: pair i) of the grid verifies signature
+// i.  A quad past n (the ragged last warp) runs on row n - 1 and its
+// verdict is not stored: every lane must reach every exchange, so none
+// returns early.
 FE_FN int64_t quad_row(int64_t i, int64_t n) { return i < n ? i : n - 1; }
 
 // K-G: the windows derived from the raw s and h bytes of row quad_row(i, n);
@@ -122,44 +121,96 @@ FE_FN int quad_vote(int lane, int64_t i, int64_t n, uint8_t ok) {
     return lane == 0 && i < n && ok;
 }
 
-// K-B: window w of the table of the point with affine (x, y) = xy[0..63]:
-// the 16 entries d * 16^w * A, d = 0..15, written to out[d * GE_PRE_BYTES].
-// 16^w * A comes from 4w doublings of A: the same chain as the plain
-// version's window scan, so the coordinates agree mod p.  (A sequential
-// chain over the windows would need 252 doublings a key; this one runs
-// 8,064, the price of one thread per window.)
-FE_FN void build_window_one(uint8_t *out, const uint8_t *xy, int w) {
-    ge s = ge_from_affine(fe_frombytes(xy), fe_frombytes(xy + 32));
+// K-B, phase 1, on a warp: the chain S_w = 16^w A, w = 0..63, of the point
+// with affine (x, y) = xy[0..63], four doublings between windows as in the
+// reference's window scan (stellar_core_tpu/accel/tables.py:51-86), so each
+// S_w agrees with the plain version's mod p: 252 doublings a key.  Every
+// quad of the warp runs the chain (the shuffles need the whole warp); only
+// a quad with `keep` stores S_w as chain entry w.
+FE_FN void build_chain_quad(QTab &chain, const uint8_t *xy, bool keep) {
+    fe x = fe_frombytes(xy), y = fe_frombytes(xy + 32);
+    QFe s = q_from_affine(x, y, fe_mul(x, y));
+    if (keep) q_tab_store(chain, 0, s);
     FE_NO_UNROLL
-    for (int i = 0; i < 4 * w; i++) s = ge_dbl(s);
-    ge_pre_store(out, ge_to_pre(ge_identity()));
-    ge_pre_store(out + GE_PRE_BYTES, ge_to_pre(s));
-    ge m = s;
-    FE_NO_UNROLL
-    for (int d = 2; d < TABLE_NDIG; d++) {
-        m = ge_add(m, s);
-        ge_pre_store(out + d * GE_PRE_BYTES, ge_to_pre(m));
+    for (int w = 1; w < TABLE_NWIN; w++) {
+        s = q_dbl(q_dbl(q_dbl(q_dbl(s))));
+        if (keep) q_tab_store(chain, w, s);
     }
 }
 
-// K-T: R' = [s]B + [h](-A) by 64 windows of two precomputed adds (no
-// doublings); then encode and compare with R.  Nibble w of a scalar is
-// (byte[w/2] >> 4(w%2)) & 15.
-FE_FN uint8_t verify_tables_one(const uint8_t *s, const uint8_t *h,
-                                const uint8_t *r, const uint8_t *key_tab,
-                                const uint8_t *base_tab) {
+// K-B, phase 2, quad w: window w's 16 entries d S, d = 0..15, S = S_w,
+// written to out[d * GE_PRE_BYTES] in the resident table's order.  The
+// multiples come by 14 repeated adds of S, as the reference's do; the add
+// q_add_pre(m, q_to_pre(S)) equals ge_add(m, S) mod p (ge25519_quad.cuh),
+// and the bytes are canonical, so every byte equals the plain version's.
+FE_FN void build_window_quad(uint8_t *out, const QFe &s) {
+    q_pre_store(out, q_identity_pre());
+    QFe ps = q_to_pre(s);
+    q_pre_store(out + GE_PRE_BYTES, ps);
+    QFe m = s;
+    FE_NO_UNROLL
+    for (int d = 2; d < TABLE_NDIG; d++) {
+        m = q_add_pre(m, ps);
+        q_pre_store(out + d * GE_PRE_BYTES, q_to_pre(m));
+    }
+}
+
+// K-T, lane k of a pair: its half of R' = sum_w (B_w[s_w] + (-A)_w[h_w]),
+// the windows w = k, k + 2, ..., k + 62: 64 precomputed adds of
+// ge25519.cuh, no exchange.  Nibble w of a scalar is (byte[w/2] >> 4(w%2))
+// & 15.  With key_tab null the key's entries are left out (its part is the
+// identity) and nothing of them is read.
+FE_FN ge tables_half(const uint8_t *s, const uint8_t *h, const uint8_t *key_tab,
+                     const uint8_t *base_tab, int k) {
     ge acc = ge_identity();
     FE_NO_UNROLL
-    for (int w = 0; w < TABLE_NWIN; w++) {
+    for (int w = k; w < TABLE_NWIN; w += 2) {
         int shift = 4 * (w & 1);
         int ds = (s[w >> 1] >> shift) & 15;
         int dh = (h[w >> 1] >> shift) & 15;
         acc = ge_add_pre(acc, ge_pre_load(base_tab + w * WINDOW_BYTES + ds * GE_PRE_BYTES));
-        acc = ge_add_pre(acc, ge_pre_load(key_tab + w * WINDOW_BYTES + dh * GE_PRE_BYTES));
+        if (key_tab != nullptr)
+            acc = ge_add_pre(acc, ge_pre_load(key_tab + w * WINDOW_BYTES + dh * GE_PRE_BYTES));
     }
+    return acc;
+}
+
+FE_FN PGe p_tables_halves(const uint8_t *s, const uint8_t *h,
+                          const uint8_t *key_tab, const uint8_t *base_tab) {
+    P_GE_LANEWISE(tables_half(s, h, key_tab, base_tab, k))
+}
+
+// K-T: row quad_row(i, n) on pair i.  The group law is associative and the
+// formulas complete, so the two halves joined by one complete add are R'
+// in both lanes; each lane encodes its copy (one invert, the lanes in
+// step) and compares with R.  A slot outside [0, nslots) leaves the key's
+// part out, reads nothing of the key table, and rejects the signature.
+FE_FN uint8_t verify_tables_pair(int64_t i, int64_t n, const uint8_t *s,
+                                 const uint8_t *h, const uint8_t *r,
+                                 const int32_t *slots,
+                                 const uint8_t *key_table, int64_t nslots,
+                                 const uint8_t *base_table) {
+    int64_t c = quad_row(i, n);
+    int32_t slot = slots[c];
+    const uint8_t *key = (slot >= 0 && slot < nslots)
+                             ? key_table + (int64_t)slot * KEY_BYTES
+                             : nullptr;
+    PGe acc = p_tables_halves(s + 32 * c, h + 32 * c, key, base_table);
+    acc = p_ge_add(acc, p_ge_swap(acc));
     uint8_t enc[32];
-    ge_encode(enc, acc);
-    return bytes_equal32(enc, r);
+    ge_encode(enc, p_lane0(acc));
+    return key != nullptr && bytes_equal32(enc, r + 32 * c);
+}
+
+// The chain floor's check (fe_check.cu): `steps` doublings of the point
+// with affine (x, y) = xy[0..63] on a quad, in precomputed form (what K-B
+// stores of a chain point).
+FE_FN QFe dbl_chain_quad(const uint8_t *xy, int64_t steps) {
+    fe x = fe_frombytes(xy), y = fe_frombytes(xy + 32);
+    QFe p = q_from_affine(x, y, fe_mul(x, y));
+    FE_NO_UNROLL
+    for (int64_t k = 0; k < steps; k++) p = q_dbl(p);
+    return q_to_pre(p);
 }
 
 // The field-op check of chip_smoke.py and the tests: op on the elements

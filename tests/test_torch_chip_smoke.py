@@ -59,9 +59,9 @@ def test_operation_counts():
     assert chip_smoke.kt_imads() == 254 * 55 + 1037 * 100
     assert chip_smoke.kg_imads() == 1274 * 55 + 2144 * 100
     # K-B's bound counts what the build needs (x*y once, the 252-doubling
-    # chain, 142 multiplies a window); its design runs 8,064 doublings
-    assert chip_smoke.kb_imads() == 1008 * 55 + (1 + 1008 + 64 * 142) * 100
-    assert chip_smoke.kb_imads_run() == 32256 * 55 + 41408 * 100
+    # chain, 127 multiplies a window: 14 precomputed adds and 15 entries)
+    assert chip_smoke.kb_imads() == 1008 * 55 + (1 + 1008 + 64 * 127) * 100
+    assert chip_smoke.CHAIN_DBLS == 252
     ms, by = chip_smoke.bound_ms(1e12, 1.0)
     assert by == "operations" and ms == pytest.approx(1e15 / (132 * 64 * 1.98e9))
     # quorum kernels: __popc at 16 a clock per SM (compute capability 9.0)
@@ -85,6 +85,16 @@ QUAD_OK = {"stack": 16, "spill_stores": 0, "spill_loads": 0,
            "registers": 200}
 
 
+def _ptxas_of_the_quad_kernels():
+    """A clean ptxas summary of K-G, K-W, K-T and K-B (mangled names), and
+    of a kernel the check does not cover."""
+    return {"_Z21verify_generic_kernelPKhS0_": dict(QUAD_OK),
+            "_Z21verify_windows_kernelPKi": dict(QUAD_OK),
+            "_Z20verify_tables_kernelPKhS0_": dict(QUAD_OK),
+            "_Z19build_tables_kernelPKhPKi": dict(QUAD_OK),
+            "_Z15fe_check_kernelPKhS0_": {**QUAD_OK, "stack": 4096}}
+
+
 @pytest.mark.parametrize("change,ok", [
     ({}, True), ({"stack": 2559}, True), ({"stack": 2560}, False),
     ({"spill_stores": 4}, False), ({"spill_loads": 4}, False),
@@ -93,9 +103,7 @@ QUAD_OK = {"stack": 16, "spill_stores": 0, "spill_loads": 0,
 def test_build_check_of_the_quad_kernels(change, ok):
     """The build phase fails unless ptxas shows K-G and K-W with no spills
     and no stack frame that could hold a 2,560-byte table."""
-    ptxas = {"_Z21verify_generic_kernelPKhS0_": dict(QUAD_OK),
-             "_Z21verify_windows_kernelPKi": dict(QUAD_OK),
-             "_Z19verify_tables_kernelPKh": {**QUAD_OK, "stack": 4096}}
+    ptxas = _ptxas_of_the_quad_kernels()
     if change is None:
         del ptxas["_Z21verify_windows_kernelPKi"]
     else:
@@ -104,6 +112,29 @@ def test_build_check_of_the_quad_kernels(change, ok):
         chip_smoke.check_quad_kernels(ptxas)
     else:
         with pytest.raises(AssertionError, match="K-G / K-W"):
+            chip_smoke.check_quad_kernels(ptxas)
+
+
+@pytest.mark.parametrize("kernel", ["_Z20verify_tables_kernelPKhS0_",
+                                    "_Z19build_tables_kernelPKhPKi"],
+                         ids=["K-T", "K-B"])
+@pytest.mark.parametrize("change,ok", [
+    ({"stack": 159}, True), ({"stack": 160}, False),
+    ({"spill_stores": 4}, False), ({"spill_loads": 4}, False),
+    (None, False)], ids=["small-stack", "point-on-stack", "spill-stores",
+                         "spill-loads", "missing"])
+def test_build_check_of_the_table_kernels(kernel, change, ok):
+    """K-T and K-B must show no spills and no stack frame that could hold
+    a point's 160 bytes of limbs."""
+    ptxas = _ptxas_of_the_quad_kernels()
+    if change is None:
+        del ptxas[kernel]
+    else:
+        ptxas[kernel].update(change)
+    if ok:
+        chip_smoke.check_quad_kernels(ptxas)
+    else:
+        with pytest.raises(AssertionError, match="K-T / K-B"):
             chip_smoke.check_quad_kernels(ptxas)
 
 

@@ -50,6 +50,7 @@ def host(tmp_path_factory):
     lib.host_build_tables.argtypes = [VP, VP, i64, VP, i64]
     lib.host_quad_point_ops.argtypes = [VP, i64, VP]
     lib.host_verify_tables.argtypes = [VP, VP, VP, VP, i64, VP, i64, VP, VP]
+    lib.host_dbl_chain.argtypes = [VP, i64, i64, VP]
     c_int = ctypes.c_int
     lib.host_quorum_flags.argtypes = [VP, i64, c_int, VP, VP, c_int, c_int,
                                       c_int, c_int, VP, VP, VP, VP, VP, VP,
@@ -400,36 +401,154 @@ def test_quad_point_ops_match_single_thread(host, kind):
 
 
 def test_build_tables_body_matches_plain(host):
-    """K-B's entries equal the plain build_tables' as canonical values, for
-    a key of -A and for the base point (two slots of one table)."""
-    pk, _ = sodium.sign_seed_keypair(bytes(range(32)))
-    neg = ed25519.Ed25519BatchVerifier._decode_pk(pk)
-    xy = np.ascontiguousarray(np.stack([neg[:2], tables.base_xy()[0]]))
-    slots = np.array([1, 0], dtype=np.int32)
-    table = tables.new_table(2, "cpu").numpy()
-    host.host_build_tables(_ptr(xy), _ptr(slots), 2, _ptr(table), 2)
-    plain = tables.build_tables(field.from_bytes(torch.from_numpy(xy[:, 0])),
-                                field.from_bytes(torch.from_numpy(xy[:, 1])))
-    assert np.array_equal(table[slots], field.to_bytes(plain).numpy())
+    """K-B's two-phase body (one chain of 252 doublings into the chain
+    buffer, then a quad a window) writes entries equal to the plain
+    build_tables' byte for byte, for keys of -A and for the base point
+    (slots of one table, out of order); a slot outside the table is
+    skipped."""
+    neg = [ed25519.Ed25519BatchVerifier._decode_pk(
+        sodium.sign_seed_keypair(bytes([i]) + bytes(range(31)))[0])
+        for i in range(2)]
+    xy = np.ascontiguousarray(np.stack([n[:2] for n in neg]
+                                       + [tables.base_xy()[0], neg[0][:2]]))
+    slots = np.array([2, 0, 1, 3], dtype=np.int32)
+    table = tables.new_table(3, "cpu").numpy()
+    host.host_build_tables(_ptr(xy), _ptr(slots), 4, _ptr(table), 3)
+    plain = tables.build_tables(field.from_bytes(torch.from_numpy(xy[:3, 0])),
+                                field.from_bytes(torch.from_numpy(xy[:3, 1])))
+    assert np.array_equal(table[slots[:3]], field.to_bytes(plain).numpy())
 
 
-def test_verify_tables_body_matches_plain_and_libsodium(host):
-    pks, sigs, msgs = _signed_batch(2, 10, seed=12, corrupt_every=4)
+def _tables_inputs(host, n_keys, n, seed, corrupt_every):
+    """K-T's inputs for n signatures over n_keys keys: s, h, r, each
+    signature's slot, the key table (slot k: key k) and the base table,
+    both built by K-B's host body; and libsodium's verdicts."""
+    pks, sigs, msgs = _signed_batch(n_keys, n, seed, corrupt_every)
     s, h, r, keys, kidx = _device_inputs(pks, sigs, msgs)
     xy = np.ascontiguousarray(np.concatenate([keys[:, :2], tables.base_xy()]))
     nk = len(keys)
-    slots = np.arange(nk + 1, dtype=np.int32)
     table = tables.new_table(nk + 1, "cpu").numpy()
-    host.host_build_tables(_ptr(xy), _ptr(slots), nk + 1, _ptr(table), nk + 1)
-    base = np.ascontiguousarray(table[nk])
-    out = np.zeros(len(s), dtype=np.uint8)
-    host.host_verify_tables(_ptr(s), _ptr(h), _ptr(r), _ptr(kidx), len(s),
-                            _ptr(table), nk, _ptr(base), _ptr(out))
+    host.host_build_tables(_ptr(xy), _ptr(np.arange(nk + 1, dtype=np.int32)),
+                           nk + 1, _ptr(table), nk + 1)
+    expect = [sodium.verify_detached(sg, m, pk)
+              for pk, sg, m in zip(pks, sigs, msgs)]
+    return (s, h, r, kidx, np.ascontiguousarray(table[:nk]),
+            np.ascontiguousarray(table[nk]), expect)
+
+
+def _host_tables(host, s, h, r, slots, key_table, base):
+    """K-T's pair body on n rows, run in whole warps of 16 pairs; as
+    _host_generic, no pair past n may overwrite the sentinel bytes past n."""
+    n = len(s)
+    out = np.full(n + 16, SENTINEL, dtype=np.uint8)
+    host.host_verify_tables(_ptr(s), _ptr(h), _ptr(r), _ptr(slots), n,
+                            _ptr(key_table), len(key_table), _ptr(base),
+                            _ptr(out))
+    assert (out[n:] == SENTINEL).all()
+    return out[:n].astype(bool)
+
+
+def _plain_tables(s, h, r, slots, key_table, base):
     t = torch.from_numpy
-    plain = tables.verify_tables_forward(t(s), t(h), t(kidx), t(r),
-                                         t(table[:nk]), t(base))
-    expect = [sodium.verify_detached(sg, m, pk) for pk, sg, m in zip(pks, sigs, msgs)]
-    assert out.astype(bool).tolist() == plain.tolist() == expect
+    return tables.verify_tables_forward(t(s), t(h), t(slots), t(r),
+                                        t(key_table), t(base))
+
+
+def test_verify_tables_body_matches_plain_and_libsodium(host):
+    """K-T's pair body (two halves of the 128 adds, joined by one complete
+    add) equals the plain verify_tables_forward and libsodium."""
+    s, h, r, slots, key_table, base, expect = _tables_inputs(
+        host, 2, 10, seed=12, corrupt_every=4)
+    got = _host_tables(host, s, h, r, slots, key_table, base)
+    plain = _plain_tables(s, h, r, slots, key_table, base)
+    assert got.tolist() == plain.tolist() == expect
+    assert expect.count(False) == 2
+
+
+@pytest.mark.parametrize("n", [1, 3, 7, 17, 33])
+def test_table_pair_body_on_ragged_sizes(host, n):
+    """K-T at n whose last warp of 16 pairs is partial: its pairs past n
+    run on row n - 1, read nothing past the inputs (each ends at a page
+    with no access) and store nothing; every verdict equals the plain
+    version's and libsodium's."""
+    s, h, r, slots, key_table, base, expect = _tables_inputs(
+        host, 3, n, seed=60 + n, corrupt_every=3)
+    got = _host_tables(host, *map(_guarded, (s, h, r, slots)), key_table,
+                       base)
+    plain = _plain_tables(s, h, r, slots, key_table, base)
+    assert got.tolist() == plain.tolist() == expect
+
+
+def test_table_slot_outside_the_rows_rejects_only_its_signature(host):
+    """Slots outside [0, nslots) in the middle of a warp: those signatures
+    are rejected (the key table is never read for them), their neighbours
+    in the same warps keep their verdicts."""
+    s, h, r, slots, key_table, base, expect = _tables_inputs(
+        host, 3, 33, seed=15, corrupt_every=7)
+    assert _host_tables(host, s, h, r, slots, key_table, base).tolist() \
+        == expect
+    bad = slots.copy()
+    bad[[10, 12, 17]] = [len(key_table), -1, (1 << 31) - 1]
+    want = np.array(expect)
+    assert want[[10, 12, 17]].all()
+    want[[10, 12, 17]] = False
+    assert _host_tables(host, s, h, r, bad, key_table, base).tolist() \
+        == want.tolist()
+
+
+@pytest.mark.parametrize("steps", [0, 1, 4, 21])
+def test_doubling_chain_body_matches_plain(host, steps):
+    """The chain-floor check kernel's body (`steps` q_dbl of a quad, in
+    precomputed form) equals the plain chain of point_dbl, at a ragged n
+    whose inputs end at a page with no access."""
+    xy = np.ascontiguousarray(np.concatenate(
+        [_device_inputs(*_signed_batch(3, 3, seed=70, corrupt_every=9))[3][:, :2],
+         tables.base_xy()]))
+    n, guarded = len(xy), _guarded(xy)
+    out = np.full((n + 1, 4, 32), SENTINEL, dtype=np.uint8)
+    host.host_dbl_chain(_ptr(guarded), n, steps, _ptr(out))
+    assert (out[n] == SENTINEL).all()
+    assert np.array_equal(out[:n], tables.dbl_chain_plain(
+        torch.from_numpy(xy), steps).numpy())
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_table_bodies_on_adversarial_vectors(host, adversarial, monkeypatch,
+                                             case):
+    """chip_smoke's adversarial vectors through the verifier's host prep
+    with hot_threshold 1, so that every key that passes the prep is hot:
+    its table built by K-B's body and its signatures verified by K-T's, as
+    host C++ (each call checked against the plain version).  The verdicts
+    are libsodium's."""
+    name, cases, expected = adversarial[case]
+    t = torch.from_numpy
+    calls = {"K-B": 0, "K-T": 0}
+
+    def host_kb(table, slots, key_xy):
+        plain = tables._build_tables_into_plain(table.clone(), slots, key_xy)
+        host.host_build_tables(_ptr(key_xy.numpy()), _ptr(slots.numpy()),
+                               len(slots), table.data_ptr(), len(table))
+        assert torch.equal(table, plain)
+        calls["K-B"] += 1
+        return table
+
+    def host_kt(s, h, slots, r, key_table, base):
+        got = _host_tables(host, *(a.numpy() for a in
+                                   (s, h, r, slots, key_table, base)))
+        assert got.tolist() == tables.verify_tables_forward(
+            s, h, slots, r, key_table, base).tolist()
+        calls["K-T"] += 1
+        return t(got)
+
+    monkeypatch.setattr(tables, "build_tables_into", host_kb)
+    monkeypatch.setattr(tables, "verify_tables", host_kt)
+    monkeypatch.setattr(tables, "_base_tables", {})
+    v = ed25519.Ed25519BatchVerifier(chunk_size=32, hot_threshold=1,
+                                     device="cpu")
+    pks, sigs, msgs = (list(c) for c in zip(*cases))
+    assert v.verify(pks, sigs, msgs).tolist() == expected, name
+    assert v.stats["generic_sigs"] == 0, name
+    assert (calls["K-B"] and calls["K-T"]) or not any(expected), name
 
 
 def random_quorum_rows(qmap, n_rows, seed):
@@ -507,6 +626,7 @@ def test_flag_tables_hold_each_set_once():
     ("verify_generic", ed25519._K_G), ("verify_generic", ed25519._K_W),
     ("tables", tables._K_B),
     ("tables", tables._K_T), ("fe_check", field._FE_CHECK),
+    ("fe_check", tables._DBL_CHAIN),
     ("quorum", quorum._K_QF), ("quorum", quorum._K_QC)],
     ids=lambda v: v if isinstance(v, str) else v[0])
 def test_ctypes_argtypes_match_the_c_entry(source, entry):

@@ -104,7 +104,8 @@ def test_wrappers_refuse_non_cpu_tensors_instead_of_running_plain():
     the meta device reach the kernel path's checks and are refused."""
     m = lambda *shape, dtype=torch.uint8: torch.empty(shape, dtype=dtype, device="meta")
     counts = (ed25519.verify_generic.launches, tables.verify_tables.launches,
-              tables.build_tables_into.launches, field.fe_check.launches)
+              tables.build_tables_into.launches, field.fe_check.launches,
+              tables.dbl_chain.launches)
     with pytest.raises(ValueError, match="expected CUDA tensors"):
         ed25519.verify_generic(m(4, 32), m(4, 32), m(4, dtype=torch.int32),
                                m(1, 3, 32), m(4, 32))
@@ -116,9 +117,12 @@ def test_wrappers_refuse_non_cpu_tensors_instead_of_running_plain():
                                  m(1, dtype=torch.int32), m(1, 2, 32))
     with pytest.raises(ValueError, match="expected CUDA tensors"):
         field.fe_check(m(4, 32), m(4, 32), 0)
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        tables.dbl_chain(m(1, 2, 32), 4)
     assert counts == (ed25519.verify_generic.launches,
                       tables.verify_tables.launches,
-                      tables.build_tables_into.launches, field.fe_check.launches)
+                      tables.build_tables_into.launches, field.fe_check.launches,
+                      tables.dbl_chain.launches)
 
 
 def test_quorum_wrappers_refuse_non_cpu_tensors():

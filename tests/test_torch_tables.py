@@ -1,7 +1,8 @@
 """The port's per-key window tables against the JAX package's
-accel/tables.py (CPU, exact equality): table build, table-path verify, a
-JAX-built key table carried in through convert.py, and KeyTableCache's slot,
-LRU and protect behaviour over one call sequence."""
+accel/tables.py (CPU, exact equality): table build (the plain version and
+K-B's body as host C++), table-path verify, a JAX-built key table carried
+in through convert.py, and KeyTableCache's slot, LRU and protect behaviour
+over one call sequence."""
 
 import hashlib
 from concurrent.futures import ThreadPoolExecutor
@@ -15,6 +16,7 @@ from stellar_core_tpu_torch.accel import ed25519 as TE
 from stellar_core_tpu_torch.accel import field as TF
 from stellar_core_tpu_torch.accel import tables as TT
 from stellar_core_tpu_torch.crypto import sodium
+from test_torch_csrc import host  # noqa: F401  (the kernels' bodies, host C++)
 
 Tj = pytest.importorskip("stellar_core_tpu.accel.tables")
 Ej = pytest.importorskip("stellar_core_tpu.accel.ed25519")
@@ -73,6 +75,22 @@ def test_build_tables_matches_reference(jax_table):
     # the resident format (canonical bytes, what the kernels store too)
     # agrees from either side
     assert np.array_equal(tab[[2, 0]].numpy(), convert.canonical_bytes(table[:2]))
+
+
+def test_build_tables_kernel_body_matches_reference(jax_table, host):
+    """K-B's two-phase body (one doubling chain a key, then a quad a
+    window; csrc/verify.cuh built as host C++) writes every byte of the
+    table equal to the JAX package's build, through canonical_bytes, for
+    the base point and three keys of -A."""
+    table, ax, ay = jax_table
+    xy = np.ascontiguousarray(np.stack(
+        [TF.to_bytes(torch.from_numpy(a[:4])).numpy() for a in (ax, ay)],
+        axis=1))
+    slots = np.arange(4, dtype=np.int32)
+    out = TT.new_table(4, "cpu").numpy()
+    host.host_build_tables(xy.ctypes.data, slots.ctypes.data, 4,
+                           out.ctypes.data, 4)
+    assert np.array_equal(out, convert.canonical_bytes(table[:4]))
 
 
 def _signatures(n, corrupt_every=3):

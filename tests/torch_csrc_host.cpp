@@ -1,8 +1,8 @@
 // Host build of the CUDA kernels' per-thread bodies
 // (stellar_core_tpu_torch/csrc/verify.cuh, ge25519_quad.cuh, quorum.cuh) for
 // tests/test_torch_csrc.py: each entry loops over its rows the way the
-// kernel's threads (or quads of threads) map onto them in verify_generic.cu (K-G, K-W), tables.cu,
-// fe_check.cu and quorum.cu.
+// kernel's threads (or quads of threads) map onto them in verify_generic.cu
+// (K-G, K-W), tables.cu (K-B, K-T), fe_check.cu and quorum.cu.
 #include <vector>
 
 #include "quorum.cuh"
@@ -48,9 +48,10 @@ void host_fe_check(const uint8_t *a, const uint8_t *b, int op, int64_t n,
     for (int64_t i = 0; i < n; i++) fe_check_one(out + 32 * i, a + 32 * i, b + 32 * i, op);
 }
 
-// K-G and K-W run a quad of lanes a signature; here a QTab and a QFe hold
-// the quad's four lanes, and the loops run whole warps (8 quads), rows past
-// n included, as the kernels' grids do.
+// K-G and K-W run a quad of lanes a signature, K-T a pair; here a QTab and
+// a QFe hold the quad's four lanes, a PGe the pair's two, and the loops run
+// whole warps (8 quads, 16 pairs), rows past n included, as the kernels'
+// grids do.
 #define QUADS_PER_WARP 8
 
 static int64_t warp_rows(int64_t n) {
@@ -107,27 +108,40 @@ void host_quad_point_ops(const uint32_t *limbs, int64_t n, uint8_t *out) {
     }
 }
 
+// K-B: a block a key; phase 1 (warp 0's chain into the block's chain
+// buffer), then phase 2 (quad w writes window w).
 void host_build_tables(const uint8_t *key_xy, const int32_t *slots, int64_t k,
                        uint8_t *table, int64_t nslots) {
+    QTab chain;
     for (int64_t key = 0; key < k; key++) {
         int32_t slot = slots[key];
         if (slot < 0 || slot >= nslots) continue;
+        build_chain_quad(chain, key_xy + 64 * key, true);
         for (int w = 0; w < TABLE_NWIN; w++)
-            build_window_one(table + (int64_t)slot * KEY_BYTES + w * WINDOW_BYTES,
-                             key_xy + 64 * key, w);
+            build_window_quad(table + (int64_t)slot * KEY_BYTES + w * WINDOW_BYTES,
+                              q_tab_load(chain, w));
     }
 }
 
+// K-T: a pair of lanes a signature, in whole warps of 16 pairs.
 void host_verify_tables(const uint8_t *s, const uint8_t *h, const uint8_t *r,
                         const int32_t *slots, int64_t n,
                         const uint8_t *key_table, int64_t nslots,
                         const uint8_t *base_table, uint8_t *out) {
-    for (int64_t i = 0; i < n; i++) {
-        int32_t slot = slots[i];
-        out[i] = (slot < 0 || slot >= nslots) ? 0
-                 : verify_tables_one(s + 32 * i, h + 32 * i, r + 32 * i,
-                                     key_table + (int64_t)slot * KEY_BYTES,
-                                     base_table);
+    for (int64_t i = 0; i < (n + 15) / 16 * 16; i++) {
+        uint8_t ok = verify_tables_pair(i, n, s, h, r, slots, key_table,
+                                        nslots, base_table);
+        if (i < n) out[i] = ok;
+    }
+}
+
+// The chain-floor check kernel: steps doublings of each row's point, in
+// whole warps, its precomputed form at out[128 i].
+void host_dbl_chain(const uint8_t *xy, int64_t n, int64_t steps,
+                    uint8_t *out) {
+    for (int64_t i = 0; i < warp_rows(n); i++) {
+        QFe p = dbl_chain_quad(xy + 64 * quad_row(i, n), steps);
+        if (i < n) q_pre_store(out + GE_PRE_BYTES * i, p);
     }
 }
 
