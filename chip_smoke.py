@@ -24,10 +24,17 @@ sizes:
 with every 100th signature's R corrupted (655 bad, 64,881 accepted); and
 
 * the quorum-intersection check of bench.py config 5's largest map, asym7
-  (27 validators in 7 organisations, 9,215,488 minimal-quorum hits),
-  through kernels K-QF and K-QC; a splitting tier-1-width map (7 orgs x 3
-  validators, 3-of-7) whose split must be the JAX package's; and asym5
-  with capacity buckets (8, 16), which forces the host-chunked depths;
+  (27 validators in 7 organisations, 9,215,488 minimal-quorum hits, a
+  frontier of up to 5,824,512 rows), through kernels K-QF and K-QC, one
+  launch of each a depth, its widest depths too; a splitting
+  tier-1-width map (7 orgs x 3 validators, 3-of-7) whose split must be
+  the JAX package's; asym5 with capacity buckets (8, 16), whose depths the
+  JAX package runs host-chunked (here on the card, the frontier never
+  downloaded); and a 257-node map (rows of 9 words, K-QF's wide path),
+  intersecting and split.  K-QF is held against its plain version on
+  each of its three paths (fast, wide rows, tables in global memory) and
+  K-QC at the widest asym7 depth, 11,649,024 children, and both are timed
+  there and at 65,536 children;
 
 * the graft entry (stellar_core_tpu_torch/graft_entry.py): K-W, the
   windows form of K-G, against its plain version on the cold path's 8,192
@@ -96,10 +103,9 @@ MUL_IMADS, SQ_IMADS = 100, 55
 POPC_PER_S = 132 * 16 * 1.98e9
 
 # The JAX package's results, fixed here so the checks stand on the card:
-# asym7 from QuorumIntersectionChecker(asym_org_qmap(7))._check_native() of
-# stellar_core_tpu.herder.quorum_intersection (its native C engine; 136 s
-# on a CPU); asym5 and the split map from its TPUQuorumIntersectionChecker
-# (tests/test_torch_chip_smoke.py checks both against the JAX package).
+# from its TPUQuorumIntersectionChecker on its CPU backend (asym7 also
+# from its native C engine, QuorumIntersectionChecker._check_native());
+# tests/test_torch_chip_smoke.py checks each against the JAX package.
 ASYM7_MAX_QUORUMS = 9_215_488
 ASYM5_MAX_QUORUMS = 27_584
 # org_qmap(7, 3, 3, 2): the two sides as indices i of testutils.nid(i)
@@ -108,8 +114,25 @@ SPLIT_SIDES = ([0, 1, 300, 301, 600, 601],
                [2, 302, 602, 100, 101, 102, 400, 401, 402, 200, 201, 202,
                 500, 501, 502])
 SPLIT_MAX_QUORUMS = 16
-# K-QF's comparison: child rows of one depth
+# asym7's frontier peak (the JAX package's TPUQuorumIntersectionChecker on
+# its CPU backend, about 30 s; tests/test_torch_chip_smoke.py checks it),
+# and asym5's on capacity buckets (8, 16)
+ASYM7_FRONTIER_PEAK = 5_824_512
+LADDER_FRONTIER_PEAK = 19_968
+# maps of more than 256 nodes: watched_org_qmap(*WIDE_MAP) (257 nodes,
+# rows of 9 words), intersecting, and its split form; the sides as
+# indices i of testutils.nid(i)
+WIDE_MAP = (4, 3, 3, 2, 245)
+WIDE_MAX_QUORUMS, WIDE_FRONTIER_PEAK = 624, 144
+WIDE_SPLIT_MAP = (4, 3, 2, 2, 245)
+WIDE_SPLIT_SIDES = ([0, 1, 300, 301],
+                    [2, 302, 100, 101, 102, 200, 201, 202])
+WIDE_SPLIT_MAX_QUORUMS = 4
+# K-QF's comparison: child rows of one depth; rows of the map whose tables
+# exceed shared memory (its plain version holds [rows, 4,352 sets, 8]
+# int64 intermediates)
 QF_ROWS = 65536
+QF_ROWS_GLOBAL = 4096
 
 
 def emit(obj) -> None:
@@ -453,17 +476,18 @@ class _Recorded(Exception):
     """Ends a recording walk once it has the segment it wanted."""
 
 
-def record_segments(qmap, dev, stop=lambda args: False):
+def record_segments(qmap, dev, stop=lambda args, capacity: False):
     """Walk qmap's check on `dev` with the plain segment_step, recording
-    each segment's arguments (real frontier states) until stop(arguments)
-    holds; returns them."""
+    each segment's arguments (real frontier states) and capacity (None:
+    the frontier's rows) until stop(arguments, capacity) holds; returns
+    the (arguments, capacity) pairs."""
     seen = []
 
-    def record(*args, **kw):
-        seen.append(args)
-        if stop(args):
+    def record(*args, capacity=None, **kw):
+        seen.append((args, capacity))
+        if stop(args, capacity):
             raise _Recorded
-        return quorum.segment_step_plain(*args)
+        return quorum.segment_step_plain(*args, capacity=capacity)
 
     real = quorum.segment_step
     quorum.segment_step = record
@@ -492,13 +516,14 @@ def flags_diff(got, want) -> tuple:
     return int(diff.amax(0).sum()), int(diff.max())
 
 
-def segment_diff(args) -> tuple:
+def segment_diff(args, capacity=None) -> tuple:
     """The CUDA segment_step against the plain one on the same arguments:
     (differing meta entries + rows of frontier'[:count'] + counted witness
     rows, max |difference|, the plain meta)."""
     fk, mk, rk = quorum.segment_step(*args,
-                                     tables=quorum.flag_tables(*args[-4:]))
-    fp, mp, rp = quorum.segment_step_plain(*args)
+                                     tables=quorum.flag_tables(*args[-4:]),
+                                     capacity=capacity)
+    fp, mp, rp = quorum.segment_step_plain(*args, capacity=capacity)
     mk, mp = mk.cpu(), mp.cpu()
     diffs = [(mk - mp).abs()]
     n = int(mp[2 * quorum.SEG_DEPTHS])
@@ -535,52 +560,94 @@ def word_bytes(*tensors) -> int:
     return 4 * sum(t.numel() for t in tensors)
 
 
-def quorum_kernels_vs_plain(dev) -> dict:
+def random_prune_args(ck, n_rows: int) -> tuple:
+    """prune_step's arguments for n_rows random child rows of ck's map
+    (random_rows, seeded by the map's size), the upper half of its nodes
+    remaining and all of them in the scc."""
+    rows = random_rows(ck, n_rows, seed=ck.n)
+    everyone = (1 << ck.n) - 1
+    rem, all_w = (torch.from_numpy(quorum._masks_to_words([m], ck.n_words)[0])
+                  .to(ck.device)
+                  for m in (everyone >> (ck.n // 2) << (ck.n // 2), everyone))
+    return (rows, rem, all_w, *ck._map())
+
+
+def rows_diff(qmap, dev, n_rows: int, path: str) -> dict:
+    """K-QF against the plain prune_step on n_rows random child rows of
+    qmap, whose map must take K-QF's path `path`."""
+    ck = quorum.CudaQuorumIntersectionChecker(qmap, device=dev)
+    if quorum.flags_path(ck.tables) != path:
+        raise AssertionError(f"{path} map took K-QF's "
+                             f"{quorum.flags_path(ck.tables)} path")
+    args = random_prune_args(ck, n_rows)
+    bad, err = flags_diff(quorum.prune_step(*args, tables=ck.tables),
+                          quorum.prune_step_plain(*args))
+    return {"words": ck.n_words, "path": path, "rows": n_rows,
+            "smem_bytes": quorum.flags_smem_bytes(ck.tables),
+            "mismatches": bad, "max_abs_err": err}
+
+
+def tallied(call):
+    """(call()'s result, the plain versions' popcount tally during it)."""
+    quorum.popcount_tally = {"distinct": 0, "per_member": 0}
+    try:
+        out = call()
+        return out, dict(quorum.popcount_tally)
+    finally:
+        quorum.popcount_tally = None
+
+
+def quorum_kernels_vs_plain(dev) -> tuple:
     """K-QF and K-QC against their plain versions on the card; returns
-    their timing entries for the kernels line."""
+    their timing entries at asym7's widest depth (the main path's widest
+    launches; for the kernels line) and at 65,536 children."""
     S = quorum.SEG_DEPTHS
     half = QF_ROWS // 2
     t0 = time.perf_counter()
+    # asym7's segments up to its widest depth: the one-depth segment from
+    # its frontier peak into twice its rows, as main-quorum launches it
+    segs7 = record_segments(qmaps.asym_org_qmap(7), dev,
+                            lambda a, cap: a[1] == ASYM7_FRONTIER_PEAK)
+    wide_seg, wide_cap = segs7[-1]
+    if wide_seg[1] != ASYM7_FRONTIER_PEAK or wide_cap != 2 * wide_seg[1] \
+            or wide_cap <= quorum.CudaQuorumIntersectionChecker \
+            .CAPACITY_BUCKETS[-1]:
+        raise AssertionError(f"asym7's walk ended at {wide_seg[1]} rows, "
+                             f"capacity {wide_cap}, not its widest depth")
     # a real asym7 depth: the first segment that starts from >= 32,768 rows
-    fr, count, bits, rems, active, scc, *tabs = record_segments(
-        qmaps.asym_org_qmap(7), dev, lambda a: a[1] >= half)[-1]
+    fr, count, bits, rems, active, scc, *tabs = next(
+        a for a, _ in segs7 if a[1] >= half)
+    del segs7
     ft = quorum.flag_tables(*tabs)
     live = fr[:half]
     children = torch.cat([live, live | bits[0][None]])
     qf_args = (children, rems[0], scc, *tabs)
     got = quorum.prune_step(*qf_args, tables=ft)
-    quorum.popcount_tally = {"distinct": 0, "per_member": 0}
-    try:
-        want = quorum.prune_step_plain(*qf_args)
-        popcounts = dict(quorum.popcount_tally)
-    finally:
-        quorum.popcount_tally = None
+    want, popcounts = tallied(lambda: quorum.prune_step_plain(*qf_args))
     qf_bad, qf_err = flags_diff(got, want)
     qf = {"rows_asym7": {"mismatches": qf_bad, "depth_count": int(count),
                          "alive": int(want[0].sum()),
                          "quorums": int(want[1].sum()),
-                         "distinct_sets": len(ft.tops) + len(ft.pairs),
+                         "distinct_sets": ft.dims[1] + ft.dims[2],
+                         "classes": ft.dims[0],
                          "popcounts": popcounts["distinct"],
                          "popcounts_per_member": popcounts["per_member"]}}
-    # two- and seven-word rows
-    for name, qmap in (("flat40", qmaps.flat_qmap(40, 40)),
-                       ("flat200", qmaps.flat_qmap(200, 134))):
-        ck = quorum.CudaQuorumIntersectionChecker(qmap, device=dev)
-        rows = random_rows(ck, QF_ROWS, seed=ck.n)
-        everyone = (1 << ck.n) - 1
-        rem = torch.from_numpy(quorum._masks_to_words(
-            [everyone >> (ck.n // 2) << (ck.n // 2)], ck.n_words)[0]).to(dev)
-        all_w = torch.from_numpy(
-            quorum._masks_to_words([everyone], ck.n_words)[0]).to(dev)
-        bad, err = flags_diff(quorum.prune_step(rows, rem, all_w, *ck._map(),
-                                                tables=ck.tables),
-                              quorum.prune_step_plain(rows, rem, all_w,
-                                                      *ck._map()))
-        qf[f"rows_{name}"] = {"words": ck.n_words, "mismatches": bad}
-        qf_bad, qf_err = qf_bad + bad, max(qf_err, err)
+    # two- and seven-word rows (fast path), 9-word rows of a 257-node map
+    # (wide path), and a map whose tables exceed shared memory (global)
+    for name, qmap, n_rows, path in (
+            ("flat40", qmaps.flat_qmap(40, 40), QF_ROWS, "fast"),
+            ("flat200", qmaps.flat_qmap(200, 134), QF_ROWS, "fast"),
+            ("watched257", qmaps.watched_org_qmap(*WIDE_MAP), QF_ROWS,
+             "wide"),
+            ("scattered256", qmaps.scattered_qmap(256, 16, seed=3),
+             QF_ROWS_GLOBAL, "global")):
+        qf[f"rows_{name}"] = entry = rows_diff(qmap, dev, n_rows, path)
+        qf_bad += entry["mismatches"]
+        qf_err = max(qf_err, entry["max_abs_err"])
 
-    # segments: one asym7 depth (K-QC's timed shape), a full asym6 segment,
-    # the split map's witness segment, and a forced overflow
+    # segments: one asym7 depth (the 65,536-child shape), the widest asym7
+    # depth at full width, a full asym6 segment, the split map's witness
+    # segment, and a forced overflow
     cap = next(c for c in quorum.CudaQuorumIntersectionChecker.CAPACITY_BUCKETS
                if c >= half << S)
     fr7 = torch.zeros((cap, fr.shape[1]), dtype=torch.int64, device=dev)
@@ -588,8 +655,8 @@ def quorum_kernels_vs_plain(dev) -> dict:
     one_depth = np.array([True] + [False] * (S - 1))
     seg7 = (fr7, half, bits, rems, one_depth, scc, *tabs)
     seg6 = record_segments(qmaps.asym_org_qmap(6), dev,
-                           lambda a: a[1] >= 4096)[-1]
-    split = [a for a in record_segments(qmaps.org_qmap(*SPLIT_MAP), dev)
+                           lambda a, cap: a[1] >= 4096)[-1][0]
+    split = [a for a, _ in record_segments(qmaps.org_qmap(*SPLIT_MAP), dev)
              if any(quorum.segment_step_plain(*a)[1][S:2 * S].tolist())][0]
     fr6, count6 = seg6[0], seg6[1]
     overflow = None
@@ -602,10 +669,12 @@ def quorum_kernels_vs_plain(dev) -> dict:
             if ovf >= 1:
                 break
     qc, qc_bad, qc_err = {}, 0, 0
-    for name, args in (("asym7_depth", seg7), ("asym6", seg6),
-                       ("split", split), ("overflow", overflow)):
-        bad, err, meta = segment_diff(args)
-        qc[name] = {"count": int(args[1]), "capacity": len(args[0]),
+    for name, args, cap in (("asym7_depth", seg7, None),
+                            ("asym7_widest", wide_seg, wide_cap),
+                            ("asym6", seg6, None), ("split", split, None),
+                            ("overflow", overflow, None)):
+        bad, err, meta = segment_diff(args, cap)
+        qc[name] = {"count": int(args[1]), "capacity": cap or len(args[0]),
                     "mismatches": bad, "meta": meta}
         qc_bad, qc_err = qc_bad + bad, max(qc_err, err)
     if qc["split"]["meta"][S:2 * S] == [0] * S or \
@@ -617,39 +686,64 @@ def quorum_kernels_vs_plain(dev) -> dict:
     if qf_bad or qc_bad:
         raise AssertionError("a quorum kernel disagrees with its plain version")
 
-    # times at the asym7 depth's shape: 65,536 children of 32,768 rows
-    n_words = children.shape[1]
-    timing = {"K-QF": {
-        "ms": cuda_ms(lambda: quorum.prune_step(*qf_args, tables=ft), 20),
-        "ms_2_streams": two_stream_ms(dev, lambda lo, hi: quorum.prune_step(
-            children[lo:hi], *qf_args[1:], tables=ft), QF_ROWS, 20),
-        "plain_ms": cuda_ms(lambda: quorum.prune_step_plain(*qf_args), 3),
-        # the popcounts of each distinct set at each pass; rows read once,
-        # three flag bytes written, the map's tables, remaining and scc
-        "bound": bound_from(popcounts["distinct"] / POPC_PER_S,
-                            word_bytes(children, *ft, rems[0], scc)
-                            + 3 * QF_ROWS),
-        "max_abs_err": qf_err, "library_ms": None}}
-    alive, is_q, wit = want
-    kept = int(alive.sum())
-    timing["K-QC"] = {
-        "ms": event_ms(lambda: quorum.segment_step(*seg7, tables=ft),
-                       "K-QC", 20),
-        "plain_ms": cuda_ms(lambda: quorum.compact_plain(children, *want), 5),
-        # three flag bytes a child and the 32,768 source rows read once, the
-        # kept rows written (32-bit words); the scans' additions at the
-        # multiply-add rate
-        "bound": bound_from(4 * QF_ROWS / IMAD_PER_S,
-                            3 * QF_ROWS + 4 * (half + kept) * n_words),
-        "max_abs_err": qc_err,
-        "library_ms": cuda_ms(lambda: children[alive], 20)}
+    # times at two shapes: 65,536 children of 32,768 rows (the shape of the
+    # earlier measurements), and the widest depth, 2 x 5,824,512 children
+    # (the main path's widest)
+    wfr, wcount, wbits, wrems, _, wscc = wide_seg[:6]
+    wide_children = torch.cat([wfr[:wcount], wfr[:wcount] | wbits[0][None]])
+    wide_qf = (wide_children, wrems[0], wscc, *tabs)
+    wide_flags, wide_pop = tallied(lambda: quorum.prune_step_plain(*wide_qf))
+    timing = {}
+    for shape, kids, qf_in, seg, cap, flags, pops, reps in (
+            ("65536", children, qf_args, seg7, len(fr7), want, popcounts, 20),
+            ("widest", wide_children, wide_qf, wide_seg, wide_cap,
+             wide_flags, wide_pop, 5)):
+        kept, n_src = int(flags[0].sum()), seg[1]
+
+        # the depth's two launches as segment_step makes them, without its
+        # closing sync (event_ms's held card then times the kernels, not
+        # the host's launch gaps)
+        def depth(seg=seg, cap=cap):
+            return quorum.enqueue_segment(*seg[:6], ft, cap)
+
+        t = {"K-QF": {
+            "ms": event_ms(lambda: quorum.prune_step(*qf_in, tables=ft),
+                           "K-QF", reps),
+            "in_segment_ms": event_ms(depth, "K-QF", reps),
+            "plain_ms": cuda_ms(lambda: quorum.prune_step_plain(*qf_in), 1),
+            # the popcounts of each distinct set at each pass (asym7's one
+            # class is in every non-empty row, so K-QF issues just these);
+            # rows read once, three flag bytes written, the map's tables,
+            # remaining and scc
+            "bound": bound_from(pops["distinct"] / POPC_PER_S,
+                                word_bytes(kids, ft.blob, qf_in[1],
+                                           qf_in[2]) + 3 * len(kids)),
+            "max_abs_err": qf_err, "library_ms": None}, "K-QC": {
+            "ms": event_ms(depth, "K-QC", reps),
+            "plain_ms": cuda_ms(lambda: quorum.compact_plain(kids, *flags), 3),
+            # three flag bytes a child, the source rows read once and the
+            # kept rows written (32-bit words; the card holds them as
+            # int64, so the kernel moves twice these row bytes); the scans'
+            # additions at the multiply-add rate
+            "bound": bound_from(4 * len(kids) / IMAD_PER_S,
+                                3 * len(kids)
+                                + 4 * (n_src + kept) * kids.shape[1]),
+            "max_abs_err": qc_err,
+            "library_ms": cuda_ms(lambda: kids[flags[0]], 5)}}
+        if shape == "65536":
+            t["K-QF"]["ms_2_streams"] = two_stream_ms(
+                dev, lambda lo, hi: quorum.prune_step(
+                    children[lo:hi], *qf_args[1:], tables=ft), QF_ROWS, 20)
+        timing[shape] = t
+    del wide_flags, wide_children, wide_qf, wide_seg
     emit({"phase": "quorum-kernel-times",
-          "K-QF_in_segment_ms": event_ms(
-              lambda: quorum.segment_step(*seg7, tables=ft), "K-QF", 20),
-          **{k: {"ms": v["ms"], "plain_ms": v["plain_ms"],
-                 "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
-                 "library_ms": v["library_ms"]} for k, v in timing.items()}})
-    return timing
+          "widest_depth": {"count": wcount, "children": 2 * wcount,
+                           "popcounts": wide_pop["distinct"]},
+          **{shape: {k: {key: (v["bound"] if key == "bound" else v[key])
+                         for key in v if key != "max_abs_err"}
+                     for k, v in t.items()}
+             for shape, t in timing.items()}})
+    return timing["widest"], timing["65536"]
 
 
 def check_cuda(qmap):
@@ -659,56 +753,110 @@ def check_cuda(qmap):
     return ck.check(), ck.stats
 
 
-def quorum_main_paths() -> dict:
-    """The checker on the default card, with no device argument: asym7,
-    the split map (through check_intersection_cuda) and asym5 on tiny
-    buckets.  Returns asym7's launches."""
-    run = drive(lambda: check_cuda(qmaps.asym_org_qmap(7)))
-    res, stats = run["verdicts"]
-    emit({"phase": "main-quorum", "map": "asym7", "nodes": res.node_count,
-          "intersects": res.intersects,
-          "max_quorums_found": res.max_quorums_found,
-          "frontier_peak": stats["frontier_peak"], **call_report(run)})
-    if not res.intersects or res.max_quorums_found != ASYM7_MAX_QUORUMS \
-            or run["launches"]["K-QC"] < 1:
-        raise AssertionError(f"asym7: {res}, launches {run['launches']}")
-    main_launches = run["launches"]
-
-    qmap = qmaps.org_qmap(*SPLIT_MAP)
+def split_check(qmap, sides, max_quorums, phase: str, name: str) -> None:
+    """A splitting map through check_intersection_cuda with no device
+    argument: its split must be the JAX package's (`sides`, as indices of
+    testutils.nid) and both sides quorums to the CPU oracle."""
     run = drive(lambda: quorum.check_intersection_cuda(qmap))
     res = run["verdicts"]
-    want = tuple([qmaps.nid(i) for i in side] for side in SPLIT_SIDES)
+    want = tuple([qmaps.nid(i) for i in side] for side in sides)
     oracle = QuorumIntersectionChecker(qmap)
     a, b = ([sum(1 << oracle.index[v] for v in side) for side in res.split]
             if res.split else (0, 0))
     accepted = oracle.is_quorum(a) and oracle.is_quorum(b) and not a & b
-    emit({"phase": "main-quorum-split", "map": "org_qmap%s" % (SPLIT_MAP,),
+    emit({"phase": phase, "map": name, "nodes": res.node_count,
           "intersects": res.intersects,
           "split_sizes": [len(s) for s in res.split or ()],
           "split_equals_jax": res.split == want, "oracle_accepts": accepted,
           "max_quorums_found": res.max_quorums_found, **call_report(run)})
     if res.intersects or res.split != want or not accepted \
-            or res.max_quorums_found != SPLIT_MAX_QUORUMS:
-        raise AssertionError(f"split map: {res}")
+            or res.max_quorums_found != max_quorums:
+        raise AssertionError(f"{name}: {res}")
 
-    checker = quorum.CudaQuorumIntersectionChecker
-    buckets = checker.CAPACITY_BUCKETS
-    checker.CAPACITY_BUCKETS = (8, 16)
-    try:
-        run = drive(lambda: check_cuda(qmaps.asym_org_qmap(5)))
-    finally:
-        checker.CAPACITY_BUCKETS = buckets
+
+def quorum_main_paths() -> dict:
+    """The checker on the default card, with no device argument: asym7,
+    the split map (through check_intersection_cuda), asym5 on tiny
+    buckets, and the 257-node map and its split form.  Returns asym7's
+    launches."""
+    run = drive(lambda: check_cuda(qmaps.asym_org_qmap(7)))
     res, stats = run["verdicts"]
     launches = run["launches"]
-    emit({"phase": "main-quorum-ladder", "map": "asym5", "buckets": [8, 16],
+    emit({"phase": "main-quorum", "map": "asym7", "nodes": res.node_count,
           "intersects": res.intersects,
           "max_quorums_found": res.max_quorums_found,
           "frontier_peak": stats["frontier_peak"], **call_report(run)})
-    # every segment depth launches one K-QF and one K-QC: the K-QF
-    # launches beyond K-QC's are the host-chunked depths'
+    # one K-QF and one K-QC a depth, the depths the reference chunks too
+    if not res.intersects or res.max_quorums_found != ASYM7_MAX_QUORUMS \
+            or stats["frontier_peak"] != ASYM7_FRONTIER_PEAK \
+            or launches["K-QC"] < 1 or launches["K-QF"] != launches["K-QC"]:
+        raise AssertionError(f"asym7: {res}, {stats}, launches {launches}")
+    main_launches = launches
+
+    split_check(qmaps.org_qmap(*SPLIT_MAP), SPLIT_SIDES, SPLIT_MAX_QUORUMS,
+                "main-quorum-split", "org_qmap%s" % (SPLIT_MAP,))
+
+    # asym5 on buckets (8, 16): the depths the reference runs host-chunked
+    # run as one-depth segments past the top bucket; no frontier comes home
+    # (no _prune chunk, no CUDA tensor through _host)
+    checker = quorum.CudaQuorumIntersectionChecker
+    seen = {"chunked_on_card": 0, "downloads": 0, "prune_calls": 0}
+    real = quorum.segment_step, quorum._host, checker._prune
+
+    def step(*args, capacity=None, **kw):
+        seen["chunked_on_card"] += capacity is not None and capacity > 16
+        return real[0](*args, capacity=capacity, **kw)
+
+    def host(a):
+        seen["downloads"] += isinstance(a, torch.Tensor) and a.is_cuda
+        return real[1](a)
+
+    def prune(self, *args):
+        seen["prune_calls"] += 1
+        return real[2](self, *args)
+
+    buckets = checker.CAPACITY_BUCKETS
+    checker.CAPACITY_BUCKETS = (8, 16)
+    # made first: its map's upload goes through _host too
+    ck = checker(qmaps.asym_org_qmap(5))
+    quorum.segment_step, quorum._host, checker._prune = step, host, prune
+    try:
+        run = drive(lambda: (ck.check(), ck.stats))
+    finally:
+        checker.CAPACITY_BUCKETS = buckets
+        quorum.segment_step, quorum._host, checker._prune = real
+    res, stats = run["verdicts"]
+    emit({"phase": "main-quorum-ladder", "map": "asym5", "buckets": [8, 16],
+          "intersects": res.intersects,
+          "max_quorums_found": res.max_quorums_found,
+          "frontier_peak": stats["frontier_peak"], **seen,
+          **call_report(run)})
     if not res.intersects or res.max_quorums_found != ASYM5_MAX_QUORUMS \
-            or launches["K-QF"] <= launches["K-QC"]:
-        raise AssertionError(f"asym5 ladder: {res}, launches {launches}")
+            or stats["frontier_peak"] != LADDER_FRONTIER_PEAK \
+            or seen["chunked_on_card"] < 1 or seen["downloads"] \
+            or seen["prune_calls"]:
+        raise AssertionError(f"asym5 ladder: {res}, {stats}, {seen}")
+
+    # more than 256 nodes: rows of 9 words on K-QF's wide path
+    qmap = qmaps.watched_org_qmap(*WIDE_MAP)
+    run = drive(lambda: check_cuda(qmap))
+    res, stats = run["verdicts"]
+    path = quorum.flags_path(
+        quorum.CudaQuorumIntersectionChecker(qmap).tables)
+    emit({"phase": "main-quorum-wide",
+          "map": "watched_org_qmap%s" % (WIDE_MAP,), "nodes": res.node_count,
+          "main_scc_size": res.main_scc_size, "k_qf_path": path,
+          "intersects": res.intersects,
+          "max_quorums_found": res.max_quorums_found,
+          "frontier_peak": stats["frontier_peak"], **call_report(run)})
+    if not res.intersects or res.node_count != 257 or path != "wide" \
+            or res.max_quorums_found != WIDE_MAX_QUORUMS \
+            or stats["frontier_peak"] != WIDE_FRONTIER_PEAK \
+            or run["launches"]["K-QF"] < 1:
+        raise AssertionError(f"257-node map: {res}, {stats}, {path}")
+    split_check(qmaps.watched_org_qmap(*WIDE_SPLIT_MAP), WIDE_SPLIT_SIDES,
+                WIDE_SPLIT_MAX_QUORUMS, "main-quorum-wide-split",
+                "watched_org_qmap%s" % (WIDE_SPLIT_MAP,))
     return main_launches
 
 
@@ -783,17 +931,18 @@ def graft_entry_phase(kw_args) -> dict:
     return timing
 
 
-def multi_gpu_phase(dev, hot, cold, timing) -> None:
+def multi_gpu_phase(dev, hot, cold, timing, qf_65536) -> None:
     """The multi-card forms, as shards of `dev`, so that one card
     suffices: dryrun_multigpu(4), verify_batch on the cold and hot inputs
     with devices=[dev, dev], asym5 and the split map through the sharded
     quorum checker; and the kernels' times with a chunk split over two
-    streams (from `timing`)."""
+    streams (K-G's and K-T's from `timing`, K-QF's at 65,536 children)."""
     cards = torch.cuda.device_count()
     emit({"phase": "multi-gpu-kernel-times", "device_count": cards,
-          "shards": 2, **{k: {"ms": timing[k]["ms"],
-                               "ms_2_streams": timing[k]["ms_2_streams"]}
-                          for k in ("K-G", "K-T", "K-QF")}})
+          "shards": 2, **{k: {key: t[key] for key in ("ms", "ms_2_streams")}
+                          for k, t in (("K-G", timing["K-G"]),
+                                       ("K-T", timing["K-T"]),
+                                       ("K-QF", qf_65536))}})
     run = drive(lambda: graft_entry.dryrun_multigpu(4))
     summary = run["verdicts"]
     emit({"phase": "multi-gpu-dryrun", "device_count": cards,
@@ -1094,7 +1243,7 @@ def run(dev) -> int:
     ed25519._verifiers.clear()
     first = drive(lambda: ed25519.verify_batch(*hot, chunk_size=HOT_CHUNK))
     steady = drive(lambda: ed25519.verify_batch(*hot, chunk_size=HOT_CHUNK))
-    stats = ed25519._verifier_for(HOT_CHUNK, 4, None).stats
+    stats = ed25519._verifier_for(HOT_CHUNK, 256, 4, None).stats
     emit({"phase": "main-hot", "accepted": int(first["verdicts"].sum()),
           "stats": stats, "first_call": report(first),
           "steady": report(steady)})
@@ -1116,7 +1265,7 @@ def run(dev) -> int:
 
     first = drive(cold_call)
     steady = drive(cold_call)
-    stats = ed25519._verifier_for(COLD_CHUNK, 1 << 62, None).stats
+    stats = ed25519._verifier_for(COLD_CHUNK, 256, 1 << 62, None).stats
     emit({"phase": "main-cold", "accepted": int(first["verdicts"].sum()),
           "stats": stats, "first_call": report(first),
           "steady": report(steady)})
@@ -1139,11 +1288,12 @@ def run(dev) -> int:
           "cold_steady_sigs_per_s": N_SIGS / cold_runs[1]["seconds"]})
 
     # -- quorum intersection (bench.py config 5) ----------------------------
-    timing.update(quorum_kernels_vs_plain(dev))
+    widest, at_65536 = quorum_kernels_vs_plain(dev)
+    timing.update(widest)
     quorum_launches = quorum_main_paths()
 
     # -- the multi-card forms (verify, prune, the accept-count sum) --------
-    multi_gpu_phase(dev, hot, cold, timing)
+    multi_gpu_phase(dev, hot, cold, timing, at_65536["K-QF"])
 
     # -- the kernels line -------------------------------------------------
     meta = {

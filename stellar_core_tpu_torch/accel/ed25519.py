@@ -489,13 +489,17 @@ class Ed25519BatchVerifier:
                 yield k, dev, sel, spans
 
 
-_verifiers: dict = {}  # (chunk, hot threshold, devices) -> verifier
+_verifiers: dict = {}  # (chunk, tail floor, hot threshold, devices) -> verifier
 
 
-def _verifier_for(chunk_size: int, hot_threshold: int, device,
-                  devices=None) -> Ed25519BatchVerifier:
+def _verifier_for(chunk_size: int, tail_floor: int, hot_threshold: int,
+                  device, devices=None) -> Ed25519BatchVerifier:
+    """The cached verifier of these arguments, keyed as the reference keys
+    its own (stellar_core_tpu/accel/ed25519.py:495-505) and on the
+    devices: two callers that differ only in `tail_floor` get two
+    verifiers, with their own pk caches, use counts and key tables."""
     devs = resolve_shards(device, devices)
-    key = (chunk_size, hot_threshold, devs)
+    key = (chunk_size, tail_floor, hot_threshold, devs)
     v = _verifiers.get(key)
     if v is None:
         v = _verifiers[key] = Ed25519BatchVerifier(
@@ -506,17 +510,18 @@ def _verifier_for(chunk_size: int, hot_threshold: int, device,
 def verify_batch(pks, sigs, msgs, chunk_size: int = 512,
                  tail_floor: int = 256, hot_threshold: int = 4, *,
                  device=None, devices=None) -> np.ndarray:
-    """Verdicts for (pk, sig, msg) triples.  `tail_floor` is accepted for
-    call compatibility with the reference and has no effect: the port does
+    """Verdicts for (pk, sig, msg) triples.  `tail_floor` keys the cached
+    verifier, as in the reference, and has no other effect: the port does
     not pad its chunks.  `device` / `devices`: see Ed25519BatchVerifier."""
-    return _verifier_for(chunk_size, hot_threshold, device, devices).verify(
-        pks, sigs, msgs)
+    return _verifier_for(chunk_size, tail_floor, hot_threshold, device,
+                         devices).verify(pks, sigs, msgs)
 
 
 def verify_batch_async(pks, sigs, msgs, chunk_size: int = 512,
                        tail_floor: int = 256, hot_threshold: int = 4, *,
                        device=None, devices=None):
     """Dispatch now, sync later: returns the collector callable (see
-    Ed25519BatchVerifier.verify_async).  `tail_floor` has no effect."""
-    return _verifier_for(chunk_size, hot_threshold, device, devices
-                         ).verify_async(pks, sigs, msgs)
+    Ed25519BatchVerifier.verify_async).  `tail_floor` keys the cached
+    verifier and has no other effect."""
+    return _verifier_for(chunk_size, tail_floor, hot_threshold, device,
+                         devices).verify_async(pks, sigs, msgs)

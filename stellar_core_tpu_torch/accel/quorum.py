@@ -18,19 +18,26 @@ Two kernels (csrc/quorum.cu), each beside its plain version here:
 - **K-QF** (``flags_kernel``) replaces ``_prune_step`` / ``_child_flags``
   (stellar_core_tpu/accel/quorum.py:121-178): the alive / is-quorum /
   witness flags of each child row, one thread per row, the contraction
-  fixpoint a loop of the thread's own.  ``prune_step`` launches it on a
-  batch of children; each depth of ``segment_step`` launches it on the
-  frontier itself, child t < n being fr[t] and child n + t being
-  fr[t] | bit.
+  fixpoint a loop of the thread's own over the map's node classes.
+  ``prune_step`` launches it on a batch of children; each depth of
+  ``segment_step`` launches it on the frontier itself, child t < n being
+  fr[t] and child n + t being fr[t] | bit.  Rows of up to 8 words with
+  tables that fit shared memory take the fast path; wider rows and larger
+  tables take the wide paths (``flags_path``).
 - **K-QC** (``compact_kernel``) replaces the rest of a ``_segment_step``
   depth (:236-263): the stable compaction of the alive children (exclude
   branch first, then include branch, each in index order, as
   ``argsort(~alive)`` orders them), the first WITNESS_CAP witness rows in
-  the same order, the per-depth counts and the freeze on overflow.
+  the same order, the per-depth counts and the freeze on overflow, in one
+  launch.
 
 A segment runs its SEG_DEPTHS depths back to back on the current stream;
-the live count, the overflow depth and the 10-int meta stay on the card,
-and the host syncs once per segment, on the meta.
+the live count, the overflow depth and the meta stay on the card, and the
+host syncs once per segment, on the meta.  A depth the reference runs
+host-chunked (its frontier too wide for the top capacity bucket, or the
+depth after an overflow freeze) runs here as a segment of that one depth
+into a buffer of twice the frontier's rows: the frontier never leaves the
+card.
 
 With several devices the checker takes the reference's mesh path
 (quorum.py:318-338, 464-494): every depth host-chunked, each prune_step
@@ -54,9 +61,6 @@ from ..herder.quorum_intersection import (
 
 # Padding sentinel for inner-set thresholds: never satisfiable.
 _PAD_THR = 1 << 30
-# K-QF is instantiated for W = 1..MAX_WORDS words a row.
-MAX_WORDS = 8
-MAX_NODES = 32 * MAX_WORDS
 # Depths fused per segment, and the per-depth capacity of the witness rows
 # (the reference's values: the same map takes the same path).
 SEG_DEPTHS = 4
@@ -64,9 +68,18 @@ WITNESS_CAP = 8
 # children a K-QC tile holds (csrc/quorum.cu: 256 threads x 8)
 QC_TILE = 2048
 # K-QF's block size and the shared memory a block may opt in to on sm_90
-# (csrc/quorum.cu: QF_THREADS, MAX_SMEM)
+# (csrc/quorum.cu: QF_THREADS, MAX_SMEM); the widths of the fast path (its
+# template instances) and the most pair words whose results a thread keeps
+# in registers (csrc/quorum.cuh: QR_PAIR_WORDS); the threads of a wide-path
+# launch at most (each with its own scratch)
 QF_THREADS = 128
 FLAGS_SMEM_MAX = 232448
+FAST_WORDS = 8
+QR_PAIR_WORDS = 2
+QF_WIDE_THREADS = 65536
+# meta's slots beyond segment_step_plain's: which buffer holds the live
+# frontier (0: the segment's input)
+M_BUF = 2 * SEG_DEPTHS + 2
 
 
 def _masks_to_words(masks, n_words: int) -> np.ndarray:
@@ -248,16 +261,18 @@ def compact_plain(children, alive, is_q, wit):
 
 def segment_step_plain(frontier, count, bits_seq, rems_seq, active_seq,
                        scc_words, top_thr, top_masks, inner_thr,
-                       inner_masks):
+                       inner_masks, *, capacity=None):
     """SEG_DEPTHS frontier depths: the reference's _segment_step
     (quorum.py:195-271).  frontier [C, W] (rows >= count are padding);
     returns (frontier', meta [2 SEG_DEPTHS + 2] int32 = per-depth quorum
     hits ++ per-depth witnesses ++ [count', overflow depth or -1],
     w_rows [SEG_DEPTHS, WITNESS_CAP, W]).  A depth whose alive children
-    exceed C leaves the state as it was (its counts 0) and ends the
-    segment.  Only frontier'[:count'] and w_rows[j, :witnesses_j] mean
-    anything."""
-    capacity, n_words = frontier.shape
+    exceed `capacity` (default C) leaves the state as it was (its counts 0)
+    and ends the segment.  Only frontier'[:count'] and
+    w_rows[j, :witnesses_j] mean anything."""
+    n_words = frontier.shape[1]
+    if capacity is None:
+        capacity = frontier.shape[0]
     fr, cnt, ovf = frontier, int(count), -1
     meta = [0] * (2 * SEG_DEPTHS) + [0, -1]
     w_rows = torch.zeros((SEG_DEPTHS, WITNESS_CAP, n_words),
@@ -274,7 +289,8 @@ def segment_step_plain(frontier, count, bits_seq, rems_seq, active_seq,
         if len(kept) > capacity:
             ovf = d
             continue
-        fr = torch.zeros_like(frontier)
+        fr = torch.zeros((capacity, n_words), dtype=torch.int64,
+                         device=frontier.device)
         fr[:len(kept)] = kept
         cnt = len(kept)
         meta[d], meta[SEG_DEPTHS + d] = q, w
@@ -286,26 +302,42 @@ def segment_step_plain(frontier, count, bits_seq, rems_seq, active_seq,
 
 # -- K-QF's form of the map ---------------------------------------------------
 
+class FlagArrays(NamedTuple):
+    """K-QF's form of a map, as host arrays: each distinct top mask and
+    each distinct satisfiable inner (mask, threshold) pair once (a pair a
+    node's qset holds twice is two pairs); per node its top threshold, the
+    index of its top mask and its pairs as a bitmask; and the nodes grouped
+    into classes of equal (top threshold, top mask, pairs), each with the
+    mask of its members."""
+    top_thr: np.ndarray        # [N] int32
+    top_of: np.ndarray         # [N] int64
+    tops: np.ndarray           # [T, W] int64 words
+    pair_thr: np.ndarray       # [P] int64
+    pairs: np.ndarray          # [P, W] int64 words
+    node_pairs: np.ndarray     # [N, ceil(P / 32)] int64 words
+    class_thr: np.ndarray      # [C] int64
+    class_top: np.ndarray      # [C] int64
+    class_pairs: np.ndarray    # [C, ceil(P / 32)] int64 words
+    class_members: np.ndarray  # [C, W] int64 words
+
+
 class FlagTables(NamedTuple):
-    """A map as K-QF reads it (csrc/quorum.cuh's QMap): each distinct top
-    mask and each distinct satisfiable inner (mask, threshold) pair once,
-    and per node its top threshold, the index of its top mask and its
-    pairs as a bitmask.  A pair a node's qset holds twice is two pairs."""
-    top_thr: torch.Tensor      # [N] int32
-    top_of: torch.Tensor       # [N] int32
-    tops: torch.Tensor         # [T, W] int64 words
-    pair_thr: torch.Tensor     # [P] int32
-    pairs: torch.Tensor        # [P, W] int64 words
-    node_pairs: torch.Tensor   # [N, ceil(P / 32)] int64 words
+    """A map as K-QF reads it: flag_arrays' class and set tables as one
+    array of 32-bit words on the map's device, in csrc/quorum.cuh's
+    q_blob_words order, and their sizes (csrc/quorum.cuh's QDims)."""
+    blob: torch.Tensor                   # int32
+    dims: Tuple[int, int, int, int, int]  # classes, tops, pairs,
+    #                                       pair words, words a row
 
 
-def flag_tables(top_thr, top_masks, inner_thr, inner_masks) -> FlagTables:
-    """K-QF's tables of a map given as flatten_qmap's padded tensors, on
-    their device.  Inner pairs above 32 W (the padding) are never
-    satisfied and are left out."""
-    tm, it, im = (_host(a) for a in (top_masks, inner_thr, inner_masks))
+def flag_arrays(top_thr, top_masks, inner_thr, inner_masks) -> FlagArrays:
+    """K-QF's form of a map given as flatten_qmap's padded tensors.  Inner
+    pairs above 32 W (the padding) are never satisfied and are left out."""
+    tt, tm, it, im = (_host(a) for a in (top_thr, top_masks, inner_thr,
+                                         inner_masks))
     n, k, n_words = im.shape
     tops, top_of = np.unique(tm, axis=0, return_inverse=True)
+    top_of = top_of.reshape(-1)
     index, pair_thr, pairs, node_bits = {}, [], [], []
     for i in range(n):
         mine, bits = {}, 0
@@ -321,34 +353,74 @@ def flag_tables(top_thr, top_masks, inner_thr, inner_masks) -> FlagTables:
                 pairs.append(im[i, j])
             bits |= 1 << p
         node_bits.append(bits)
-    dev = top_masks.device
-    return FlagTables(
-        top_thr.to(torch.int32), upload(top_of.reshape(-1).astype(np.int32), dev),
-        upload(tops.astype(np.int64), dev),
-        upload(np.array(pair_thr, dtype=np.int32), dev),
-        upload(np.array(pairs, dtype=np.int64).reshape(-1, n_words), dev),
-        upload(_masks_to_words(node_bits, -(-len(pairs) // 32)), dev))
+    node_pairs = _masks_to_words(node_bits, -(-len(pairs) // 32))
+    # node classes: equal (top threshold, top mask, pairs)
+    keys = np.concatenate([tt.reshape(n, 1).astype(np.int64),
+                           top_of.reshape(n, 1).astype(np.int64), node_pairs],
+                          axis=1)
+    classes, class_of = np.unique(keys, axis=0, return_inverse=True)
+    class_of = class_of.reshape(-1)
+    members = _masks_to_words(
+        [sum(1 << int(i) for i in np.nonzero(class_of == c)[0])
+         for c in range(len(classes))], n_words)
+    return FlagArrays(
+        tt, top_of, tops, np.array(pair_thr, dtype=np.int64),
+        np.array(pairs, dtype=np.int64).reshape(-1, n_words), node_pairs,
+        classes[:, 0], classes[:, 1], np.ascontiguousarray(classes[:, 2:]),
+        members)
+
+
+def flag_tables(top_thr, top_masks, inner_thr, inner_masks) -> FlagTables:
+    """K-QF's tables of a map given as flatten_qmap's padded tensors, on
+    their device (flag_arrays, packed)."""
+    a = flag_arrays(top_thr, top_masks, inner_thr, inner_masks)
+    blob = np.concatenate([
+        a.class_thr, a.class_top, a.pair_thr, a.class_pairs.reshape(-1),
+        a.tops.reshape(-1), a.pairs.reshape(-1), a.class_members.reshape(-1)])
+    # 32-bit words: the masks' bits and the thresholds as they are
+    return FlagTables(upload(blob.astype(np.uint32).view(np.int32),
+                             top_masks.device),
+                      (len(a.class_thr), len(a.tops), len(a.pairs),
+                       a.node_pairs.shape[1], a.tops.shape[1]))
+
+
+def regs_fit(tables: FlagTables) -> bool:
+    """Does a row's slice-pass results fit in registers (q_regs_fit)?"""
+    return tables.dims[3] <= QR_PAIR_WORDS
 
 
 def flags_smem_bytes(tables: FlagTables) -> int:
-    """Shared memory K-QF takes for `tables` (csrc/quorum.cuh's
-    q_flags_smem): the tables as 32-bit words and each thread's scratch."""
-    n, pair_words = tables.node_pairs.shape
-    n_tops, n_words = tables.tops.shape
-    n_pairs = tables.pairs.shape[0]
-    return (4 * (2 * n + n * pair_words + n_pairs + (n_tops + n_pairs) * n_words
-                 + pair_words * QF_THREADS) + 2 * n_tops * QF_THREADS)
+    """Shared memory K-QF takes for `tables` with them in shared memory
+    (csrc/quorum.cuh's q_flags_smem): the blob, and on the fast path (rows
+    of at most FAST_WORDS words) each thread's slice-pass results unless
+    they are in registers.  The wide paths keep those in scratch."""
+    d = tables.dims
+    blob = 4 * tables.blob.numel()
+    if d[4] > FAST_WORDS or regs_fit(tables):
+        return blob
+    return blob + 4 * QF_THREADS * d[3]
+
+
+def flags_path(tables: FlagTables) -> str:
+    """K-QF's path for a map: "fast" (rows of at most FAST_WORDS words,
+    tables in shared memory), "wide" (wider rows, tables in shared
+    memory) or "global" (tables too large for shared memory, read in
+    place)."""
+    if flags_smem_bytes(tables) > FLAGS_SMEM_MAX:
+        return "global"
+    return "fast" if tables.dims[4] <= FAST_WORDS else "wide"
 
 
 # -- the kernels' wrappers -----------------------------------------------------
 
 _VP, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _K_QF = ("quorum_flags_launch",
-         [_VP, _I64, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP,
-          _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP])
+         [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT,
+          _INT, _INT, _VP, _I64, _VP, _VP, _VP, _VP])
 _K_QC = ("quorum_compact_launch",
-         [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _INT, _INT, _VP, _VP, _VP,
-          _VP])
+         [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _INT, _INT, _INT, _VP,
+          _VP, _VP, _VP])
+_PATHS = {"fast": 0, "wide": 1, "global": 2}
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -361,33 +433,40 @@ def flags_kernel(rows, bound, remaining, scc_words, tables: FlagTables,
     the bool tensors alive, is_q and wit.  With `meta` and `bit` (a segment
     depth) the children are the live frontier rows and those rows | bit,
     the live count read from meta on the card; `bound` must be at least
-    twice it.  Takes tensors the caller has checked."""
-    n, pair_words = tables.node_pairs.shape
-    n_tops, n_words = tables.tops.shape
+    twice it.  The wide paths get their threads' scratch here.  Takes
+    tensors the caller has checked."""
+    d = tables.dims
+    path = flags_path(tables)
+    scratch, threads = None, 0
+    if path != "fast":
+        threads = min(-(-bound // QF_THREADS) * QF_THREADS, QF_WIDE_THREADS)
+        words = 5 * d[4] + d[3]     # q_wide_scratch_words
+        scratch = torch.empty(words * threads, dtype=torch.int32,
+                              device=rows.device)
     _cuda_build.launch(
         "quorum", "K-QF", _K_QF, rows.device, rows.data_ptr(), bound,
         _ptr(meta), _ptr(bit), remaining.data_ptr(), scc_words.data_ptr(),
-        n, n_tops, tables.pairs.shape[0], pair_words, n_words,
-        *(_ptr(t) for t in tables), alive.data_ptr(), is_q.data_ptr(),
-        wit.data_ptr())
+        tables.blob.data_ptr(), tables.blob.numel(), *d, _PATHS[path], _ptr(scratch), threads,
+        alive.data_ptr(), is_q.data_ptr(), wit.data_ptr())
     flags_kernel.launches += 1
 
 
 flags_kernel.launches = 0
 
 
-def compact_kernel(src, bit, alive, is_q, wit, tiles, bound, depth, meta,
-                   dst, w_rows) -> None:
+def compact_kernel(src, bit, alive, is_q, wit, state, bound, capacity,
+                   depth, dst_id, meta, dst, w_rows) -> None:
     """Launch K-QC for segment depth `depth`: compact the alive children
     of the live rows of `src` (flags from K-QF, `bound` children at most)
-    into `dst`, the first WITNESS_CAP witness rows into w_rows [CAP, W],
-    and update meta.  `tiles` is scratch of 2 ceil(bound / QC_TILE) int64."""
-    capacity, n_words = src.shape
+    into `dst` (`capacity` rows; buffer number dst_id, which meta names if
+    the depth does not overflow), the first WITNESS_CAP witness rows into
+    w_rows [CAP, W], and update meta.  `state` is a zeroed int64 array of
+    3 + ceil(bound / QC_TILE)."""
     _cuda_build.launch(
         "quorum", "K-QC", _K_QC, src.device, src.data_ptr(), bit.data_ptr(),
-        alive.data_ptr(), is_q.data_ptr(), wit.data_ptr(), tiles.data_ptr(),
-        bound, capacity, n_words, depth, meta.data_ptr(), dst.data_ptr(),
-        w_rows.data_ptr())
+        alive.data_ptr(), is_q.data_ptr(), wit.data_ptr(), state.data_ptr(),
+        bound, capacity, src.shape[1], depth, dst_id, meta.data_ptr(),
+        dst.data_ptr(), w_rows.data_ptr())
     compact_kernel.launches += 1
 
 
@@ -406,27 +485,17 @@ def _check_map(what, dev, top_thr, top_masks, inner_thr, inner_masks,
         (inner_thr, torch.int32, (n, k)),
         (inner_masks, torch.int64, (n, k, n_words)),
         *((m, torch.int64, (n_words,)) for m in masks))
-    if not 1 <= n_words <= MAX_WORDS:
-        raise ValueError(f"{what}: {n_words} words a row; the kernel takes "
-                         f"1 to {MAX_WORDS} ({MAX_NODES} nodes)")
+    if n_words < 1:
+        raise ValueError(f"{what}: rows of {n_words} words")
     if tables is None:
         raise ValueError(f"{what}: K-QF needs the map's flag_tables")
-    n_tops, n_pairs = tables.tops.shape[0], tables.pairs.shape[0]
-    pair_words = tables.node_pairs.shape[1]
-    _cuda_build.check_tensors(
-        what, dev, (tables.top_thr, torch.int32, (n,)),
-        (tables.top_of, torch.int32, (n,)),
-        (tables.tops, torch.int64, (n_tops, n_words)),
-        (tables.pair_thr, torch.int32, (n_pairs,)),
-        (tables.pairs, torch.int64, (n_pairs, n_words)),
-        (tables.node_pairs, torch.int64, (n, pair_words)))
-    if pair_words != -(-n_pairs // 32):
-        raise ValueError(f"{what}: {pair_words} words of pair bits for "
-                         f"{n_pairs} pairs")
-    if flags_smem_bytes(tables) > FLAGS_SMEM_MAX:
-        raise ValueError(f"{what}: the map's tables take "
-                         f"{flags_smem_bytes(tables)} bytes of shared memory; "
-                         f"the kernel takes at most {FLAGS_SMEM_MAX}")
+    _, _, n_pairs, pair_words, w = tables.dims
+    _cuda_build.check_tensors(what, dev, (tables.blob, torch.int32,
+                                          (tables.blob.numel(),)))
+    if w != n_words or pair_words != -(-n_pairs // 32):
+        raise ValueError(f"{what}: flag tables of {tables.dims} (classes, "
+                         f"tops, pairs, pair words, words) for rows of "
+                         f"{n_words} words")
 
 
 def prune_step(children, remaining, scc_words, top_thr, top_masks,
@@ -439,7 +508,7 @@ def prune_step(children, remaining, scc_words, top_thr, top_masks,
                                 top_masks, inner_thr, inner_masks)
     dev = children.device
     _check_map("prune_step", dev, top_thr, top_masks, inner_thr,
-                        inner_masks, tables, remaining, scc_words)
+               inner_masks, tables, remaining, scc_words)
     b = children.shape[0]
     _cuda_build.check_tensors("prune_step", dev,
                               (children, torch.int64, (b, top_masks.shape[1])))
@@ -452,51 +521,75 @@ def prune_step(children, remaining, scc_words, top_thr, top_masks,
 
 def segment_step(frontier, count, bits_seq, rems_seq, active_seq,
                  scc_words, top_thr, top_masks, inner_thr, inner_masks, *,
-                 tables: Optional[FlagTables] = None):
+                 tables: Optional[FlagTables] = None, capacity=None):
     """segment_step_plain's contract.  On a CUDA frontier each active depth
-    is K-QF + K-QC, launched back to back with no host sync; `count` is the
-    host's int, `active_seq` a host sequence, `tables` as for prune_step.
-    The input frontier is not written: the depths alternate between two
-    new buffers of its shape."""
+    is K-QF + K-QC, launched back to back; `count` is the host's int,
+    `active_seq` a host sequence, `tables` as for prune_step.  The input
+    frontier is not written: the depths alternate between two new buffers
+    of `capacity` rows (default the frontier's), and the frontier' returned
+    is the buffer that meta names after the segment's one sync, the input
+    itself if the first depth overflowed; so is the meta returned, on the
+    host."""
     if frontier.device.type == "cpu":
         return segment_step_plain(frontier, count, bits_seq, rems_seq,
                                   active_seq, scc_words, top_thr, top_masks,
-                                  inner_thr, inner_masks)
+                                  inner_thr, inner_masks, capacity=capacity)
     dev = frontier.device
-    capacity, n_words = frontier.shape[0], top_masks.shape[1]
+    n_words = top_masks.shape[1]
+    capacity = frontier.shape[0] if capacity is None else int(capacity)
     _check_map("segment_step", dev, top_thr, top_masks, inner_thr,
-                        inner_masks, tables, scc_words)
+               inner_masks, tables, scc_words)
     _cuda_build.check_tensors(
-        "segment_step", dev, (frontier, torch.int64, (capacity, n_words)),
+        "segment_step", dev,
+        (frontier, torch.int64, (frontier.shape[0], n_words)),
         (bits_seq, torch.int64, (SEG_DEPTHS, n_words)),
         (rems_seq, torch.int64, (SEG_DEPTHS, n_words)))
     count = int(count)
-    if not 0 <= count <= capacity:
-        raise ValueError(f"segment_step: count {count} outside [0, {capacity}]")
-    active = np.asarray(active_seq, dtype=bool)
-    depths = [d for d in range(SEG_DEPTHS) if active[d]]
-    # meta as segment_step_plain returns it, then the kernels' scratch slot
+    if not 0 <= count <= min(frontier.shape[0], capacity):
+        raise ValueError(f"segment_step: count {count} outside [0, "
+                         f"{min(frontier.shape[0], capacity)}]")
+    bufs, meta, w_rows = enqueue_segment(frontier, count, bits_seq,
+                                         rems_seq, active_seq, scc_words,
+                                         tables, capacity)
+    host = meta.cpu()         # the segment's one sync
+    return bufs[int(host[M_BUF])], host[:M_BUF], w_rows
+
+
+def enqueue_segment(frontier, count: int, bits_seq, rems_seq, active_seq,
+                    scc_words, tables: FlagTables, capacity: int):
+    """segment_step's launches on checked arguments, enqueued on the
+    current stream with no host sync: (the buffers [input frontier, the
+    depths' two outputs], meta on the card with M_BUF naming the buffer
+    that holds the live frontier, w_rows)."""
+    dev, n_words = frontier.device, frontier.shape[1]
+    depths = [d for d in range(SEG_DEPTHS) if active_seq[d]]
+    # meta as segment_step_plain returns it, then the buffer slot
     meta = upload(np.array([0] * (2 * SEG_DEPTHS) + [count, -1, 0],
                            dtype=np.int32), dev)
     w_rows = torch.zeros((SEG_DEPTHS, WITNESS_CAP, n_words),
                          dtype=torch.int64, device=dev)
     if not depths or count == 0:
-        return frontier, meta[:2 * SEG_DEPTHS + 2], w_rows
+        return [frontier], meta, w_rows
     # depth i of the segment has at most 2 min(C, count << i) children
     bounds = [2 * min(capacity, count << i) for i in range(len(depths))]
-    flags = torch.empty((3, bounds[-1]), dtype=torch.bool, device=dev)
-    tiles = torch.empty(2 * -(-bounds[-1] // QC_TILE), dtype=torch.int64,
-                        device=dev)
-    outs = (torch.empty_like(frontier), torch.empty_like(frontier))
-    src = frontier
+    top = max(bounds)
+    flags = torch.empty((3, top), dtype=torch.bool, device=dev)
+    state = torch.zeros((len(depths), 3 + -(-top // QC_TILE)),
+                        dtype=torch.int64, device=dev)
+    bufs = [frontier] + [torch.empty((capacity, n_words), dtype=torch.int64,
+                                     device=dev)
+                         for _ in range(min(2, len(depths)))]
+    src = 0
     for i, d in enumerate(depths):
-        dst = outs[i % 2]
-        flags_kernel(src, bounds[i], rems_seq[d], scc_words, tables,
-                     flags[0], flags[1], flags[2], meta=meta, bit=bits_seq[d])
-        compact_kernel(src, bits_seq[d], flags[0], flags[1], flags[2], tiles,
-                       bounds[i], d, meta, dst, w_rows[d])
+        dst = 1 + i % 2
+        flags_kernel(bufs[src], bounds[i], rems_seq[d], scc_words, tables,
+                     flags[0], flags[1], flags[2], meta=meta,
+                     bit=bits_seq[d])
+        compact_kernel(bufs[src], bits_seq[d], flags[0], flags[1], flags[2],
+                       state[i], bounds[i], capacity, d, dst, meta,
+                       bufs[dst], w_rows[d])
         src = dst
-    return src, meta[:2 * SEG_DEPTHS + 2], w_rows
+    return bufs, meta, w_rows
 
 
 def _host(a) -> np.ndarray:
@@ -508,8 +601,8 @@ def _host(a) -> np.ndarray:
 class CudaQuorumIntersectionChecker:
     """The reference's TPUQuorumIntersectionChecker (quorum.py:274-616): the
     same verdict contract as the CPU QuorumIntersectionChecker for maps in
-    the flattened two-level (org) form of at most MAX_NODES nodes
-    (ValueError otherwise).  Runs on the current card unless device="cpu";
+    the flattened two-level (org) form, of any size (ValueError
+    otherwise).  Runs on the current card unless device="cpu";
     `devices`, a sequence (a card may repeat), shards every depth's
     prune_step over them, as the reference's `mesh` does."""
 
@@ -533,9 +626,6 @@ class CudaQuorumIntersectionChecker:
         (self.node_ids, tops, top_masks, inner_thrs,
          inner_masks) = flatten_qmap(qmap)
         self.n = len(self.node_ids)
-        if self.n > MAX_NODES:
-            raise ValueError(f"{self.n} nodes: the CUDA path takes at most "
-                             f"{MAX_NODES} ({MAX_WORDS} words a row)")
         self.interrupt = interrupt or (lambda: False)
         # rows of one prune_step on the chunked path
         self.batch_size = 65536 if batch_size is None else batch_size
@@ -729,19 +819,53 @@ class CudaQuorumIntersectionChecker:
     def _run_resident(self, bits_all, rems_all, process_witness
                       ) -> Optional[QuorumIntersectionResult]:
         """Device-resident frontier walk: SEG_DEPTHS depths per segment,
-        compaction on the card; per segment the host syncs the meta, the
-        witness rows only when a depth found one, and the frontier only
-        when a depth falls back to the host-chunked path."""
+        compaction on the card; per segment the host syncs the meta, and
+        the witness rows only when a depth found one.  A depth the
+        reference runs host-chunked (the frontier too wide for the top
+        bucket, or the depth after an overflow freeze) is a segment of
+        that one depth into twice the frontier's rows, so the frontier
+        never leaves the card."""
         D = len(bits_all)
         W = self.n_words
-        fr_host = np.zeros((1, W), dtype=np.int64)
-        fr_dev = None        # resident [cur_cap, W] when not None
-        cur_cap = None
+        dev = self.device
+        # every depth's bit and remaining-mask, padded so that any depth's
+        # SEG_DEPTHS rows are one contiguous slice
+        pad = np.zeros((SEG_DEPTHS, W), dtype=np.int64)
+        bits_dev = upload(np.concatenate([bits_all, pad]), dev)
+        rems_dev = upload(np.concatenate([rems_all, pad]), dev)
+        fr = torch.zeros((1, W), dtype=torch.int64, device=dev)  # committed=0
+        cur_cap = None       # the bucket fr is, or None
         count = 1
         d = 0
 
-        def to_host(n):
-            return _host(fr_dev[:n]) if fr_dev is not None else fr_host[:n]
+        def run(fr_in, k, capacity):
+            """Depths d .. d + k - 1 from fr_in: (frontier', count',
+            overflow depth or -1, early result or None)."""
+            active = np.zeros(SEG_DEPTHS, dtype=bool)
+            active[:k] = True
+            # looked up in the module at each call, so a test can swap it
+            out, meta, w_rows = segment_step(
+                fr_in, count, bits_dev[d:d + SEG_DEPTHS],
+                rems_dev[d:d + SEG_DEPTHS], active, self._scc_dev,
+                *self._map(), tables=self.tables, capacity=capacity)
+            # the segment's one sync: per-depth hit/witness counts, count'
+            # and the overflow depth in one transfer
+            meta = _host(meta)
+            q_counts = meta[:SEG_DEPTHS]
+            w_counts = meta[SEG_DEPTHS:2 * SEG_DEPTHS]
+            ovf = int(meta[2 * SEG_DEPTHS + 1])
+            done_depths = k if ovf < 0 else min(ovf, k)
+            if w_counts[:done_depths].any():
+                # count quorum hits only up to and including the witnessing
+                # depth, so max_quorums_found matches the CPU oracle's count
+                # at the moment the split is found
+                rows = _host(w_rows)
+                for j in range(done_depths):
+                    if w_counts[j]:
+                        self._quorum_hits += int(q_counts[:j + 1].sum())
+                        return out, 0, ovf, process_witness(rows[j, 0])
+            self._quorum_hits += int(q_counts[:done_depths].sum())
+            return out, int(meta[2 * SEG_DEPTHS]), ovf, None
 
         while d < D and count > 0:
             self._note_frontier(count)
@@ -754,66 +878,37 @@ class CudaQuorumIntersectionChecker:
             cap = next((c for c in self.CAPACITY_BUCKETS if c >= need),
                        self.CAPACITY_BUCKETS[-1])
             if count * 2 > cap:
-                # frontier too wide even for the largest bucket: finish
-                # this depth host-chunked, then retry residency
-                fr_host, res = self._chunked_depth(
-                    to_host(count), bits_all[d], rems_all[d],
-                    process_witness)
-                fr_dev = None
+                # frontier too wide even for the largest bucket: the
+                # reference runs this depth host-chunked; here it is one
+                # depth into 2 count rows, then residency is retried
+                fr, count, _, res = run(fr, 1, 2 * count)
                 if res is not None:
                     return res
-                count = len(fr_host)
+                cur_cap = None
                 d += 1
                 continue
             k = min(SEG_DEPTHS, D - d)
-            bits = np.zeros((SEG_DEPTHS, W), dtype=np.int64)
-            rems = np.zeros((SEG_DEPTHS, W), dtype=np.int64)
-            active = np.zeros(SEG_DEPTHS, dtype=bool)
-            bits[:k] = bits_all[d:d + k]
-            rems[:k] = rems_all[d:d + k]
-            active[:k] = True
-            if fr_dev is None or cur_cap != cap:
-                fr_in = torch.zeros((cap, W), dtype=torch.int64,
-                                    device=self.device)
-                fr_in[:count] = (fr_dev[:count] if fr_dev is not None
-                                 else upload(fr_host[:count], self.device))
+            if cur_cap != cap:
+                fr_in = torch.zeros((cap, W), dtype=torch.int64, device=dev)
+                fr_in[:count] = fr[:count]
             else:
-                fr_in = fr_dev   # already resident at this capacity
-            # looked up in the module at each call, so a test can swap it
-            fr, meta, w_rows = segment_step(
-                fr_in, count, upload(bits, self.device),
-                upload(rems, self.device), active, self._scc_dev,
-                *self._map(), tables=self.tables)
-            # the segment's one sync: per-depth hit/witness counts, count'
-            # and the overflow depth in one transfer
-            meta = _host(meta)
-            q_counts = meta[:SEG_DEPTHS]
-            w_counts = meta[SEG_DEPTHS:2 * SEG_DEPTHS]
-            count = int(meta[2 * SEG_DEPTHS])
-            ovf = int(meta[2 * SEG_DEPTHS + 1])
-            fr_dev, cur_cap = fr, cap
-            done_depths = k if ovf < 0 else min(ovf, k)
-            if w_counts[:done_depths].any():
-                # count quorum hits only up to and including the witnessing
-                # depth, so max_quorums_found matches the CPU oracle's count
-                # at the moment the split is found
-                rows = _host(w_rows)
-                for j in range(done_depths):
-                    if w_counts[j]:
-                        self._quorum_hits += int(q_counts[:j + 1].sum())
-                        return process_witness(rows[j, 0])
-            self._quorum_hits += int(q_counts[:done_depths].sum())
+                fr_in = fr   # already resident at this capacity
+            fr, count, ovf, res = run(fr_in, k, cap)
+            if res is not None:
+                return res
+            cur_cap = cap
             if ovf >= 0:
                 # the overflow depth never ran: state froze at its input --
-                # finish that depth host-chunked and continue
-                fr_host, res = self._chunked_depth(
-                    to_host(count), bits_all[d + ovf], rems_all[d + ovf],
-                    process_witness)
-                fr_dev = None
+                # finish that depth as the reference's chunked fallback
+                # does, into 2 count rows, and continue
+                d += ovf
+                if self.interrupt():
+                    raise InterruptedError_()
+                fr, count, _, res = run(fr, 1, 2 * count)
                 if res is not None:
                     return res
-                count = len(fr_host)
-                d += ovf + 1
+                cur_cap = None
+                d += 1
             else:
                 d += k
         return None

@@ -38,6 +38,36 @@ def org_qmap(n_orgs: int, org_size: int, top_thr: int, inner_thr: int):
     return {v: top for org in orgs for v in org}
 
 
+def watched_org_qmap(n_orgs: int, org_size: int, top_thr: int,
+                     inner_thr: int, watchers: int):
+    """org_qmap's core and `watchers` more nodes (ids 1000, 1001, ...), each
+    with a core node's qset; no node trusts a watcher, so the
+    quorum-bearing SCC is the core and the search stays the core's.  Past
+    256 nodes in all, a row takes more than 8 words."""
+    qmap = org_qmap(n_orgs, org_size, top_thr, inner_thr)
+    core = next(iter(qmap.values()))
+    for j in range(watchers):
+        qmap[nid(1000 + j)] = core
+    return qmap
+
+
+def scattered_qmap(n: int, k: int, seed: int):
+    """n nodes, each with its own qset: itself and 3 random others as
+    validators and k inner sets of 3 random nodes (2 of 3), a majority of
+    the k + 4 entries required.  Nearly every inner set is distinct, so the
+    map's flag tables grow with n k (n = 256, k = 16: too large for a
+    block's shared memory)."""
+    import random
+    rng = random.Random(seed)
+    ids = [nid(i) for i in range(n)]
+    qmap = {}
+    for i, v in enumerate(ids):
+        others = rng.sample([u for u in ids if u != v], 3)
+        inner = [qset(2, rng.sample(ids, 3)) for _ in range(k)]
+        qmap[v] = qset((k + 4) // 2 + 1, [v] + others, inner)
+    return qmap
+
+
 def asym_org_qmap(n_orgs: int):
     """bench.py config 5's exponential class: org sizes cycle 3/4/5
     (majority inner thresholds) and each org's nodes carry a distinct qset

@@ -140,8 +140,8 @@ def test_build_check_of_the_table_kernels(kernel, change, ok):
 
 def test_quorum_constants_are_the_jax_packages():
     """The split of org_qmap(7, 3, 3, 2) and asym5's max_quorums_found, as
-    the script fixes them, against the JAX package's checker.  (asym7's
-    9,215,488 is the native engine's, 136 s on a CPU: too slow here.)"""
+    the script fixes them, against the JAX package's checker (asym7's
+    in test_asym7_constants_are_the_jax_packages)."""
     pytest.importorskip("jax")
     from stellar_core_tpu.accel.quorum import check_intersection_tpu
     from stellar_core_tpu.testutils import asym_org_qmap
@@ -165,6 +165,57 @@ def test_quorum_constants_are_the_jax_packages():
     assert res.max_quorums_found == chip_smoke.SPLIT_MAX_QUORUMS
     assert check_intersection_tpu(asym_org_qmap(5)).max_quorums_found == \
         chip_smoke.ASYM5_MAX_QUORUMS
+
+
+def _ref_check(qmap, buckets=None):
+    """The JAX package's checker on a port map (its own XDR types, node
+    ids byte for byte): (result, frontier peak)."""
+    from stellar_core_tpu.accel.quorum import TPUQuorumIntersectionChecker
+    from stellar_core_tpu.xdr import scp as SX
+    from stellar_core_tpu.xdr import types as XT
+
+    def conv(q):
+        return SX.SCPQuorumSet(
+            threshold=q.threshold,
+            validators=[XT.node_id(v.value) for v in q.validators],
+            innerSets=[conv(i) for i in q.innerSets])
+
+    ck = TPUQuorumIntersectionChecker({k: conv(v) for k, v in qmap.items()})
+    if buckets is not None:
+        ck.CAPACITY_BUCKETS = buckets
+    return ck.check(), ck._frontier_peak
+
+
+def test_ladder_and_wide_constants_are_the_jax_packages():
+    """asym5's frontier peak on buckets (8, 16), and the 257-node maps'
+    results (main-quorum-wide), as the script fixes them, against the JAX
+    package's checker."""
+    pytest.importorskip("jax")
+    from stellar_core_tpu_torch import testutils as qmaps
+    res, peak = _ref_check(qmaps.asym_org_qmap(5), (8, 16))
+    assert (res.max_quorums_found, peak) == (
+        chip_smoke.ASYM5_MAX_QUORUMS, chip_smoke.LADDER_FRONTIER_PEAK)
+    res, peak = _ref_check(qmaps.watched_org_qmap(*chip_smoke.WIDE_MAP))
+    assert res.intersects and res.node_count == 257
+    assert (res.max_quorums_found, peak) == (
+        chip_smoke.WIDE_MAX_QUORUMS, chip_smoke.WIDE_FRONTIER_PEAK)
+    res, _ = _ref_check(qmaps.watched_org_qmap(*chip_smoke.WIDE_SPLIT_MAP))
+    assert not res.intersects
+    assert res.split == tuple([qmaps.nid(i) for i in side]
+                              for side in chip_smoke.WIDE_SPLIT_SIDES)
+    assert res.max_quorums_found == chip_smoke.WIDE_SPLIT_MAX_QUORUMS
+
+
+def test_asym7_constants_are_the_jax_packages():
+    """asym7's max_quorums_found and frontier peak, which main-quorum holds
+    the port to on the card, from the JAX package's checker on its CPU
+    backend (about 30 s, 1.3 GB)."""
+    pytest.importorskip("jax")
+    from stellar_core_tpu_torch import testutils as qmaps
+    res, peak = _ref_check(qmaps.asym_org_qmap(7))
+    assert res.intersects
+    assert (res.max_quorums_found, peak) == (
+        chip_smoke.ASYM7_MAX_QUORUMS, chip_smoke.ASYM7_FRONTIER_PEAK)
 
 
 class _Event:
@@ -224,3 +275,28 @@ def test_alone_in_a_directory_it_fails(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_widest_segment_is_the_checkers(monkeypatch):
+    """record_segments, stopped at the frontier peak, returns the one-depth
+    segment the checker launches there, into twice the peak's rows past
+    the top bucket (asym5 on buckets (8, 16), whose peak depth the JAX
+    package runs host-chunked), as quorum-kernels-vs-plain takes asym7's
+    widest depth; quorum_kernel_times.py finds the same depth."""
+    import quorum_kernel_times
+    from stellar_core_tpu_torch import testutils as qmaps
+    from stellar_core_tpu_torch.accel import quorum
+    monkeypatch.setattr(quorum.CudaQuorumIntersectionChecker,
+                        "CAPACITY_BUCKETS", (8, 16))
+    peak, qmap = chip_smoke.LADDER_FRONTIER_PEAK, qmaps.asym_org_qmap(5)
+    segs = chip_smoke.record_segments(qmap, "cpu",
+                                      lambda a, cap: a[1] == peak)
+    (fr, count, bits, rems, active, *_), cap = segs[-1]
+    assert (count, cap) == (peak, 2 * peak)
+    assert max(a[1] for a, _ in segs) == peak
+    assert list(active) == [True] + [False] * (quorum.SEG_DEPTHS - 1)
+    # the script runs on the default card; here the CPU stands in
+    monkeypatch.setattr(quorum, "resolve", lambda device: torch.device("cpu"))
+    _, fr2, bit, rem = quorum_kernel_times.widest_depth(quorum, qmap, peak)
+    assert torch.equal(fr2, fr[:count])
+    assert torch.equal(bit, bits[0]) and torch.equal(rem, rems[0])

@@ -52,11 +52,9 @@ def host(tmp_path_factory):
     lib.host_verify_tables.argtypes = [VP, VP, VP, VP, i64, VP, i64, VP, VP]
     lib.host_dbl_chain.argtypes = [VP, i64, i64, VP]
     c_int = ctypes.c_int
-    lib.host_quorum_flags.argtypes = [VP, i64, c_int, VP, VP, c_int, c_int,
-                                      c_int, c_int, VP, VP, VP, VP, VP, VP,
-                                      VP]
-    lib.host_quorum_flags_smem.argtypes = [c_int] * 6
-    lib.host_quorum_flags_smem.restype = i64
+    lib.host_quorum_flags.argtypes = [VP, i64, VP, VP, VP] + [c_int] * 6 \
+        + [VP]
+    lib.host_quorum_sizes.argtypes = [c_int] * 6 + [VP]
     return lib
 
 
@@ -573,18 +571,42 @@ def _twice_held_map():
     return {v: testutils.qset(3, inner=[a, a, b]) for v in ids}
 
 
-@pytest.mark.parametrize("name,qmap", [
+def _tiered_map():
+    """Nodes of three classes: a tier of 3 orgs needing 2 of them, a
+    second tier needing all 3, and watchers with a top mask and fewer
+    inner sets."""
+    orgs = [[testutils.nid(10 * o + i) for i in range(3)] for o in range(3)]
+    inner = [testutils.qset(2, org) for org in orgs]
+    qmap = {}
+    for o, org in enumerate(orgs):
+        for v in org:
+            qmap[v] = testutils.qset(2 + (o == 2), inner=inner)
+    for j in range(3):
+        v = testutils.nid(100 + j)
+        qmap[v] = testutils.qset(2, [orgs[0][0]], inner=inner[:2])
+    return qmap
+
+
+QUORUM_CASES = [
     ("asym5-W1", testutils.asym_org_qmap(5)),
     ("flat40-W2", testutils.flat_qmap(40, 30)),
     ("org13-W2", testutils.org_qmap(13, 3, 7, 2)),
     ("split7-W1", testutils.org_qmap(7, 3, 3, 2)),
     ("split67-W7", testutils.org_qmap(67, 3, 20, 2)),
     ("rings16-W1", testutils.adversarial_quorum_map(16)),
-    ("twice-W1", _twice_held_map())])
-def test_quorum_flags_body_matches_plain(host, name, qmap):
-    """K-QF's per-row body (csrc/quorum.cuh) on the deduplicated tables
-    flag_tables makes equals the plain child_flags on the padded ones; the
-    shared memory the wrapper checks is the kernel's."""
+    ("twice-W1", _twice_held_map()),
+    ("tiers-W1", _tiered_map())]
+# maps the fast body does not take: rows of 9 words (257 nodes), and
+# tables too large for shared memory (each of 256 nodes its own qset)
+WIDE_CASES = [
+    ("watched-W9", testutils.watched_org_qmap(4, 3, 3, 2, 245)),
+    ("split-watched-W9", testutils.watched_org_qmap(4, 3, 2, 2, 245)),
+    ("scattered-W8", testutils.scattered_qmap(256, 16, seed=3))]
+
+
+def _quorum_rows_and_want(name, qmap):
+    """The checker, random rows, rem, scc, the plain child_flags packed as
+    the body's bits, and the tables' blob and dims."""
     ck, rows, rem, scc = random_quorum_rows(qmap, 300, seed=len(name))
     t = torch.from_numpy
     dead, is_q, wit = quorum.child_flags(t(rows), t(rem), t(scc), ck.top_thr,
@@ -592,33 +614,110 @@ def test_quorum_flags_body_matches_plain(host, name, qmap):
                                          ck.inner_masks)
     want = ((~dead & ~is_q).int() | is_q.int() << 1 | wit.int() << 2).numpy()
     assert is_q.any() and (~dead & ~is_q).any(), name
-    assert wit.any() == name.startswith("split"), name
-    tabs = ck.tables
-    n, pair_words = tabs.node_pairs.shape
-    n_tops, n_pairs = len(tabs.tops), len(tabs.pairs)
-    arrays = [np.ascontiguousarray(a.numpy()) for a in tabs]
+    assert wit.any() == ("split" in name), name
+    return ck, rows, rem, scc, want
+
+
+def _host_flags(host, ck, rows, rem, scc, body):
+    blob = np.ascontiguousarray(ck.tables.blob.numpy())
     out = np.zeros(len(rows), dtype=np.uint8)
-    assert host.host_quorum_flags(
-        _ptr(rows), len(rows), ck.n_words, _ptr(rem), _ptr(scc), n, n_tops,
-        n_pairs, pair_words, *map(_ptr, arrays), _ptr(out)) == 0
-    assert out.tolist() == want.tolist(), name
-    assert quorum.flags_smem_bytes(tabs) == host.host_quorum_flags_smem(
-        n, n_tops, n_pairs, pair_words, ck.n_words, quorum.QF_THREADS)
+    rc = host.host_quorum_flags(_ptr(rows), len(rows), _ptr(rem), _ptr(scc),
+                                _ptr(blob), *ck.tables.dims, body,
+                                _ptr(out))
+    return rc, out
+
+
+@pytest.mark.parametrize("name,qmap", QUORUM_CASES)
+def test_quorum_flags_body_matches_plain(host, name, qmap):
+    """K-QF's fast body (csrc/quorum.cuh: node classes, the slice-pass
+    results in registers where the map allows, else in memory) on the
+    tables flag_tables makes equals the plain child_flags on the padded
+    ones; the shared memory and blob the wrapper sizes are the kernel's."""
+    ck, rows, rem, scc, want = _quorum_rows_and_want(name, qmap)
+    tabs = ck.tables
+    regs = quorum.regs_fit(tabs)
+    for body in (0, 1):
+        rc, out = _host_flags(host, ck, rows, rem, scc, body)
+        if body == 0 and not regs:
+            assert rc == -1, name
+            continue
+        assert rc == 0 and out.tolist() == want.tolist(), (name, body)
+    sizes = np.zeros(5, dtype=np.int64)
+    host.host_quorum_sizes(*tabs.dims, quorum.QF_THREADS, _ptr(sizes))
+    assert sizes[0] == len(tabs.blob), name
+    assert bool(sizes[1]) == regs, name
+    assert quorum.flags_smem_bytes(tabs) == sizes[3 if regs else 2], name
+    assert quorum.flags_path(tabs) == "fast", name
+
+
+@pytest.mark.parametrize("name,qmap", QUORUM_CASES + WIDE_CASES)
+@pytest.mark.parametrize("body", [2, 3], ids=["wide", "global"])
+def test_quorum_wide_bodies_match_plain(host, name, qmap, body):
+    """K-QF's wide body (any width, a thread's rows and results in a
+    scratch array interleaved by thread) with the tables read as from
+    shared memory and through the global-table accessor equals the plain
+    child_flags; the wrapper picks the wide path for 9-word rows and the
+    global one for tables past FLAGS_SMEM_MAX."""
+    ck, rows, rem, scc, want = _quorum_rows_and_want(name, qmap)
+    rc, out = _host_flags(host, ck, rows, rem, scc, body)
+    assert rc == 0 and out.tolist() == want.tolist(), name
+    path = quorum.flags_path(ck.tables)
+    if name.endswith("W9"):
+        assert ck.n_words == 9 and path == "wide"
+        assert quorum.flags_smem_bytes(ck.tables) == 4 * len(ck.tables.blob)
+    if name.startswith("scattered"):
+        assert path == "global"
+        assert quorum.flags_smem_bytes(ck.tables) > quorum.FLAGS_SMEM_MAX
+        assert _host_flags(host, ck, rows, rem, scc, 1)[1].tolist() == \
+            want.tolist()
+
+
+def _mask(words) -> int:
+    return sum(int(x) << (32 * i) for i, x in enumerate(words))
+
+
+@pytest.mark.parametrize("name,qmap", QUORUM_CASES + WIDE_CASES[:1]
+                         + [("asym7", testutils.asym_org_qmap(7))])
+def test_flag_tables_classes_partition_the_nodes(name, qmap):
+    """The node classes partition the nodes, and every member of a class
+    has the class's top threshold, top mask and pairs; asym7 (and every
+    map whose nodes share one qset shape) is one class."""
+    ck = quorum.CudaQuorumIntersectionChecker(qmap, device="cpu")
+    t = quorum.flag_arrays(*ck._map())
+    assert ck.tables.dims[0] == len(t.class_thr), name
+    masks = [_mask(m) for m in t.class_members.tolist()]
+    assert sum(masks) == (1 << ck.n) - 1, name
+    assert all(a & b == 0 for i, a in enumerate(masks) for b in masks[i + 1:])
+    for c, m in enumerate(masks):
+        for i in range(ck.n):
+            if m >> i & 1:
+                assert int(t.top_thr[i]) == int(t.class_thr[c])
+                assert int(t.top_of[i]) == int(t.class_top[c])
+                assert t.node_pairs[i].tolist() == t.class_pairs[c].tolist()
+    n_classes = len(masks)
+    if name in ("asym7", "asym5-W1", "split7-W1", "org13-W2", "flat40-W2",
+                "watched-W9"):
+        assert n_classes == 1, name
+    if name == "tiers-W1":
+        assert n_classes == 3
+    if name == "rings16-W1":
+        assert n_classes == 16
 
 
 def test_flag_tables_hold_each_set_once():
     """asym7: 27 nodes, one (empty) top mask and the 7 orgs' inner sets;
     a set a qset holds twice is two pairs; padding is left out."""
-    ck = quorum.CudaQuorumIntersectionChecker(testutils.asym_org_qmap(7),
-                                              device="cpu")
-    assert (len(ck.tables.tops), len(ck.tables.pairs)) == (1, 7)
-    assert ck.tables.node_pairs.tolist() == [[0x7F]] * 27
-    twice = quorum.CudaQuorumIntersectionChecker(_twice_held_map(),
-                                                 device="cpu").tables
+    def arrays(qmap):
+        ck = quorum.CudaQuorumIntersectionChecker(qmap, device="cpu")
+        return quorum.flag_arrays(*ck._map())
+
+    asym7 = arrays(testutils.asym_org_qmap(7))
+    assert (len(asym7.tops), len(asym7.pairs)) == (1, 7)
+    assert asym7.node_pairs.tolist() == [[0x7F]] * 27
+    twice = arrays(_twice_held_map())
     assert twice.pair_thr.tolist() == [2, 2, 2]
     assert twice.node_pairs.tolist() == [[0b111]] * 6
-    flat = quorum.CudaQuorumIntersectionChecker(testutils.flat_qmap(5, 3),
-                                                device="cpu").tables
+    flat = arrays(testutils.flat_qmap(5, 3))
     assert flat.pairs.shape == (0, 1) and flat.node_pairs.shape == (5, 0)
 
 

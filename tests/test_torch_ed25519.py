@@ -231,3 +231,23 @@ def test_hot_threshold_boundary(pair):
     assert after["tables_built"] - mid["tables_built"] == 1
     assert after["table_sigs"] - mid["table_sigs"] == 2
     assert after["generic_sigs"] == mid["generic_sigs"]
+
+
+def test_tail_floor_keys_its_own_verifier(monkeypatch):
+    """As in the reference, verify_batch calls that differ only in
+    tail_floor use two cached verifiers, so their pk caches, key use counts
+    and stats stay apart."""
+    monkeypatch.setattr(TE, "_verifiers", {})
+    monkeypatch.setattr(Ej, "_verifiers", {})
+    rng = random.Random(51)
+    pk, sk = _keypair(rng)
+    args = ([pk], [sodium.sign_detached(b"t", sk)], [b"t"])
+    for floor in (64, 256):
+        assert TE.verify_batch(*args, chunk_size=CHUNK, tail_floor=floor,
+                               device="cpu").tolist() == [True]
+        Ej._verifier_for(CHUNK, floor, 4)
+    assert {k[:3] for k in TE._verifiers} == set(Ej._verifiers) == \
+        {(CHUNK, 64, 4), (CHUNK, 256, 4)}
+    a, b = TE._verifiers.values()
+    assert a is not b
+    assert a.stats == b.stats and a.stats["generic_sigs"] == 1

@@ -164,6 +164,33 @@ class TestResidentFrontier:
         resume at the overflow depth)."""
         assert_same(key, qmap, buckets=buckets)
 
+    @pytest.mark.parametrize("key,qmap,buckets", [
+        (("org", 5, 3), TU.org_qmap(5, 3, 3, 2), (8, 16)),
+        (("org", 4, 2), TU.org_qmap(4, 3, 2, 2), (8, 16)),
+        (("asym", 4), TU.asym_org_qmap(4), (8, 16)),
+        (("org", 5, 3), TU.org_qmap(5, 3, 3, 2), (32,))])
+    def test_chunked_depths_stay_resident(self, monkeypatch, key, qmap,
+                                          buckets):
+        """One device: the depths the reference runs host-chunked run as
+        one-depth segments into twice the frontier's rows; the host-chunked
+        _prune is never called, and the results, frontier peak included,
+        still equal the reference's."""
+        def refuse(*args, **kw):
+            raise AssertionError("the single-device checker chunked a depth")
+
+        monkeypatch.setattr(Q.CudaQuorumIntersectionChecker, "_prune", refuse)
+        widths = []
+        real_step = Q.segment_step
+
+        def record(*args, **kw):
+            widths.append(kw.get("capacity"))
+            return real_step(*args, **kw)
+
+        monkeypatch.setattr(Q, "segment_step", record)
+        assert_same(key, qmap, buckets=buckets)
+        # some depths ran as the reference's chunked ones: past the top bucket
+        assert any(c is not None and c > buckets[-1] for c in widths)
+
     def test_split_found_inside_segment(self):
         res = assert_same(("org", 4, 2), TU.org_qmap(4, 3, 2, 2),
                           buckets=(4096,))
@@ -211,10 +238,20 @@ class TestBigMap:
         with pytest.raises(ValueError):
             RQ.TPUQuorumIntersectionChecker(to_ref({a: deep, b: deep}))
 
-    def test_more_than_256_nodes_raises(self):
-        with pytest.raises(ValueError, match="at most 256"):
-            Q.CudaQuorumIntersectionChecker(TU.flat_qmap(257, 200),
-                                            device="cpu")
+    @pytest.mark.parametrize("core,intersects", [((4, 3, 3, 2), True),
+                                                 ((4, 3, 2, 2), False)])
+    def test_more_than_256_nodes(self, core, intersects):
+        """A core of org_qmap and 245 watcher nodes: 257 nodes, rows of 9
+        words.  The port takes it (it refused more than 256 nodes before)
+        and equals the reference, split included.  (A larger core's
+        frontier fills the reference's larger buckets, whose [rows, nodes,
+        words] intermediates outgrow a CPU's memory at this width.)"""
+        qmap = TU.watched_org_qmap(*core, 245)
+        res = assert_same(("watched", core), qmap)
+        assert res.node_count == 257 and res.main_scc_size == 12
+        assert res.intersects == intersects
+        ck = Q.CudaQuorumIntersectionChecker(qmap, device="cpu")
+        assert ck.n_words == 9 and Q.flags_path(ck.tables) == "wide"
 
 
 # -- the oracle copy --------------------------------------------------------

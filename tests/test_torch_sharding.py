@@ -179,8 +179,8 @@ def test_verify_batch_caches_a_verifier_per_device_tuple():
                            devices=["cpu"] * 2).tolist() == want
     assert TE.verify_batch_async(*args, chunk_size=4, hot_threshold=1 << 62,
                                  device="cpu")().tolist() == want
-    assert (4, 1 << 62, (CPU, CPU)) in TE._verifiers
-    assert (4, 1 << 62, (CPU,)) in TE._verifiers
+    assert (4, 256, 1 << 62, (CPU, CPU)) in TE._verifiers
+    assert (4, 256, 1 << 62, (CPU,)) in TE._verifiers
     with pytest.raises(ValueError, match="not both"):
         TE.verify_batch(*args, device="cpu", devices=["cpu"])
 

@@ -10,32 +10,69 @@
 
 namespace {
 
-// K-QF's rows, with the map's tables as the tensors hold them (int64
-// words) turned into the 32-bit words of the kernel's shared-memory copy,
-// and one row's scratch (stride 1).
-template <int W>
-void quorum_flags_rows(const int64_t *rows, int64_t b, const int64_t *rem,
-                       const int64_t *scc, int n, int n_tops, int n_pairs,
-                       int pair_words, const int32_t *top_thr,
-                       const int32_t *top_of, const int64_t *tops,
-                       const int32_t *pair_thr, const int64_t *pairs,
-                       const int64_t *node_pairs, uint8_t *out) {
-    std::vector<uint32_t> tops32(tops, tops + n_tops * W);
-    std::vector<uint32_t> pairs32(pairs, pairs + n_pairs * W);
-    std::vector<uint32_t> np32(node_pairs, node_pairs + n * pair_words);
-    std::vector<uint32_t> ok(pair_words + 1);
-    std::vector<uint16_t> hits(n_tops);
-    QMap m{n, n_tops, n_pairs, pair_words, top_thr, top_of, tops32.data(),
-           pair_thr, pairs32.data(), np32.data()};
-    QScratch x{ok.data(), hits.data(), 1};
-    uint32_t r[W], s[W], c[W];
+// K-QF's bodies, looping over rows the way the kernels' threads do.  The
+// fast body: W words and the work rows in registers, the slice-pass
+// results in registers (QRegScratch) or in memory (stride 1).
+template <int W, class X>
+void quorum_fast_rows(const int64_t *rows, int64_t b, const int64_t *rem,
+                      const int64_t *scc, const QMap<false> &m, X &x,
+                      uint8_t *out) {
+    QRow<W> r, s, c, work, keep;
     for (int w = 0; w < W; w++) {
         r[w] = (uint32_t)rem[w];
         s[w] = (uint32_t)scc[w];
     }
     for (int64_t i = 0; i < b; i++) {
         for (int w = 0; w < W; w++) c[w] = (uint32_t)rows[i * W + w];
-        out[i] = (uint8_t)q_child_flags<W>(c, r, s, m, x);
+        out[i] = (uint8_t)q_child_flags<W>(c, r, s, work, keep, m, x);
+    }
+}
+
+template <int W>
+int quorum_fast(const int64_t *rows, int64_t b, const int64_t *rem,
+                const int64_t *scc, const uint32_t *blob, const QDims &d,
+                bool regs, uint8_t *out) {
+    QMap<false> m = q_map_at<false>(blob, d);
+    if (regs) {
+        if (!q_regs_fit(d)) return -1;
+        QRegScratch x;
+        quorum_fast_rows<W>(rows, b, rem, scc, m, x, out);
+    } else {
+        std::vector<uint32_t> mem(d.pair_words + 1);
+        QMemScratch x{mem.data(), 1};
+        quorum_fast_rows<W>(rows, b, rem, scc, m, x, out);
+    }
+    return 0;
+}
+
+// The wide body: any width, a thread's rows and results in a scratch array
+// with WIDE_THREADS threads interleaved, thread g taking rows g, g +
+// WIDE_THREADS, ...; LDG: the global-table accessor.
+constexpr int WIDE_THREADS = 3;
+
+template <bool LDG>
+void quorum_wide(const int64_t *rows, int64_t b, const int64_t *rem,
+                 const int64_t *scc, const uint32_t *blob, const QDims &d,
+                 uint8_t *out) {
+    QMap<LDG> m = q_map_at<LDG>(blob, d);
+    const int nw = d.w;
+    const int64_t nth = WIDE_THREADS;
+    std::vector<uint32_t> scratch(q_wide_scratch_words(d) * nth, 0xA5A5A5A5u);
+    uint32_t *sp = scratch.data();
+    for (int64_t g = 0; g < nth; g++) {
+        QRow<0> c{sp + g, nw, nth}, r{sp + nw * nth + g, nw, nth},
+            s{sp + 2 * nw * nth + g, nw, nth},
+            work{sp + 3 * nw * nth + g, nw, nth},
+            keep{sp + 4 * nw * nth + g, nw, nth};
+        QMemScratch x{sp + 5 * nw * nth + g, nth};
+        for (int w = 0; w < nw; w++) {
+            r[w] = (uint32_t)rem[w];
+            s[w] = (uint32_t)scc[w];
+        }
+        for (int64_t t = g; t < b; t += nth) {
+            for (int w = 0; w < nw; w++) c[w] = (uint32_t)rows[t * nw + w];
+            out[t] = (uint8_t)q_child_flags<0>(c, r, s, work, keep, m, x);
+        }
     }
 }
 
@@ -145,22 +182,27 @@ void host_dbl_chain(const uint8_t *xy, int64_t n, int64_t steps,
     }
 }
 
-// Per row: Q_ALIVE | Q_IS_QUORUM | Q_WITNESS bits; returns -1 for a W the
-// kernel is not built for.
-int host_quorum_flags(const int64_t *rows, int64_t b, int w,
-                      const int64_t *rem, const int64_t *scc, int n,
-                      int n_tops, int n_pairs, int pair_words,
-                      const int32_t *top_thr, const int32_t *top_of,
-                      const int64_t *tops, const int32_t *pair_thr,
-                      const int64_t *pairs, const int64_t *node_pairs,
-                      uint8_t *out) {
-    switch (w) {
-#define HQ_CASE(WW)                                                         \
-    case WW:                                                                \
-        quorum_flags_rows<WW>(rows, b, rem, scc, n, n_tops, n_pairs,        \
-                              pair_words, top_thr, top_of, tops, pair_thr,  \
-                              pairs, node_pairs, out);                      \
+// Per row: Q_ALIVE | Q_IS_QUORUM | Q_WITNESS bits of K-QF's body `body`:
+// 0 the fast one with its results in registers, 1 the fast one with them
+// in memory, 2 the wide one reading the tables plainly (as from shared
+// memory), 3 the wide one through the global-table accessor.  Returns -1
+// for a body that does not take the map.
+int host_quorum_flags(const int64_t *rows, int64_t b, const int64_t *rem,
+                      const int64_t *scc, const uint32_t *blob,
+                      int n_classes, int n_tops, int n_pairs, int pair_words,
+                      int w, int body, uint8_t *out) {
+    QDims d{n_classes, n_tops, n_pairs, pair_words, w};
+    if (body == 2 || body == 3) {
+        if (body == 2)
+            quorum_wide<false>(rows, b, rem, scc, blob, d, out);
+        else
+            quorum_wide<true>(rows, b, rem, scc, blob, d, out);
         return 0;
+    }
+    switch (w) {
+#define HQ_CASE(WW) \
+    case WW:        \
+        return quorum_fast<WW>(rows, b, rem, scc, blob, d, body == 0, out);
         HQ_CASE(1) HQ_CASE(2) HQ_CASE(3) HQ_CASE(4)
         HQ_CASE(5) HQ_CASE(6) HQ_CASE(7) HQ_CASE(8)
 #undef HQ_CASE
@@ -168,9 +210,17 @@ int host_quorum_flags(const int64_t *rows, int64_t b, int w,
     }
 }
 
-int64_t host_quorum_flags_smem(int n, int n_tops, int n_pairs, int pair_words,
-                               int w, int threads) {
-    return q_flags_smem(n, n_tops, n_pairs, pair_words, w, threads);
+// quorum.cuh's sizes, for the wrapper's copies of them: [blob words,
+// registers fit, shared memory with the results there, without them, the
+// wide scratch words a thread].
+void host_quorum_sizes(int n_classes, int n_tops, int n_pairs,
+                       int pair_words, int w, int threads, int64_t *out) {
+    QDims d{n_classes, n_tops, n_pairs, pair_words, w};
+    out[0] = q_blob_words(d);
+    out[1] = q_regs_fit(d);
+    out[2] = q_flags_smem(d, threads, true);
+    out[3] = q_flags_smem(d, threads, false);
+    out[4] = q_wide_scratch_words(d);
 }
 
 }  // extern "C"
