@@ -36,6 +36,17 @@ with every 100th signature's R corrupted (655 bad, 64,881 accepted); and
   K-QC at the widest asym7 depth, 11,649,024 children, and both are timed
   there and at 65,536 children;
 
+* the signature seam, catchup replay's verdict half (signature-seam):
+  about 40,960 transaction envelopes shaped like bench.py's replay
+  archive (120 accounts, every 4th co-signed by an extra signer, 40
+  payments a ledger, 1,024 ledgers; about 51,200 signatures, every 100th
+  corrupted), decoded with the port's XDR, hashed as
+  TransactionSignaturePayload, verified by ``verify_batch_async`` as
+  catchup replay calls it (chunk 2,048; once at the replay default
+  hot_threshold 1 << 62, K-G, once at the bench's 4, K-B + K-T), seeded
+  into the verify cache and checked by ``SignatureChecker``: every
+  envelope's result must be the oracle's, with no verdict recomputed;
+
 * the graft entry (stellar_core_tpu_torch/graft_entry.py): K-W, the
   windows form of K-G, against its plain version on the cold path's 8,192
   signatures, its fused accept count, and ``entry()``'s step; then the
@@ -48,10 +59,11 @@ nvidia-smi gives them, the kernels line, and last
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 not 0 and the last line is not printed.  Without CUDA it exits 2.
 
-Signatures come from libsodium where it loads, else from the pure-Python
-RFC 8032 signer (stellar_core_tpu_torch/crypto/rfc8032.py; deterministic
-signing: the same bytes libsodium makes), which signs a few thousand
-distinct triples and tiles them.
+Signatures come from the port's crypto/sodium.py: libsodium where it
+loads, else its fallback, the pure-Python RFC 8032 code
+(stellar_core_tpu_torch/crypto/rfc8032.py; deterministic signing: the
+same bytes libsodium makes), which is slow: the inputs then sign a few
+thousand distinct triples (and envelopes) and tile them.
 """
 
 from __future__ import annotations
@@ -68,12 +80,18 @@ import torch
 
 from stellar_core_tpu_torch import _cuda_build, graft_entry
 from stellar_core_tpu_torch import testutils as qmaps
+from stellar_core_tpu_torch import xdr as X
 from stellar_core_tpu_torch.accel import curve, ed25519, field, quorum, tables
+from stellar_core_tpu_torch.crypto import keys as crypto_keys
 from stellar_core_tpu_torch.crypto import sodium
-from stellar_core_tpu_torch.crypto.rfc8032 import Signer
+from stellar_core_tpu_torch.crypto.sha import sha256
 from stellar_core_tpu_torch.device import Shards, parts
 from stellar_core_tpu_torch.herder.quorum_intersection import (
     QuorumIntersectionChecker)
+from stellar_core_tpu_torch.transactions.signature_checker import (
+    SignatureChecker)
+from stellar_core_tpu_torch.util.metrics import registry
+from stellar_core_tpu_torch.xdr import codec as xdr_codec
 
 P = field.P
 L = ed25519.L
@@ -141,21 +159,28 @@ def emit(obj) -> None:
 
 # -- the adversarial vectors of tests/test_accel_ed25519.py:43-168 ----------
 
-def adversarial_cases(signer: Signer):
+def signer_name() -> str:
+    """Who signs the inputs: crypto/sodium.py signs with libsodium where it
+    loads, else with the pure-Python crypto/rfc8032.py (the same bytes)."""
+    return "libsodium" if sodium.available() else "python-rfc8032"
+
+
+def adversarial_cases():
     """[(name, [(pk, sig, msg)], expected verdicts)].  The expected
     verdicts are libsodium's, fixed here so the check stands where it is
     missing."""
     out = []
 
     def kp(rng):
-        return signer.keypair(bytes(rng.randrange(256) for _ in range(32)))
+        return sodium.sign_seed_keypair(
+            bytes(rng.randrange(256) for _ in range(32)))
 
     rng = random.Random(42)
     cases = []
     for i in range(24):
         pk, sk = kp(rng)
         msg = bytes(rng.randrange(256) for _ in range(rng.randrange(0, 150)))
-        sig = signer.sign(msg, sk)
+        sig = sodium.sign_detached(msg, sk)
         kind = i % 6
         if kind == 1:
             sig = bytes([sig[0] ^ 1]) + sig[1:]
@@ -172,7 +197,7 @@ def adversarial_cases(signer: Signer):
     cases = []
     for _ in range(4):
         pk, sk = kp(rng)
-        sig = signer.sign(b"malleability", sk)
+        sig = sodium.sign_detached(b"malleability", sk)
         s_int = int.from_bytes(sig[32:], "little")
         cases.append((pk, sig, b"malleability"))
         cases.append((pk, sig[:32] + (s_int + L).to_bytes(32, "little"),
@@ -181,13 +206,13 @@ def adversarial_cases(signer: Signer):
 
     rng = random.Random(44)
     pk, sk = kp(rng)
-    sig = signer.sign(b"m", sk)
+    sig = sodium.sign_detached(b"m", sk)
     out.append(("high-bit-S", [(pk, sig[:63] + bytes([sig[63] | 0xE0]), b"m")],
                 [False]))
 
     rng = random.Random(45)
     pk, sk = kp(rng)
-    sig = signer.sign(b"torsion", sk)
+    sig = sodium.sign_detached(b"torsion", sk)
     cases = []
     for base in (0, 1, ed25519._Y8A, ed25519._Y8B, P - 1, P, P + 1):
         for sign in (0, 0x80):
@@ -199,7 +224,7 @@ def adversarial_cases(signer: Signer):
 
     rng = random.Random(46)
     _, sk = kp(rng)
-    sig = signer.sign(b"x", sk)
+    sig = sodium.sign_detached(b"x", sk)
     cases = [(y.to_bytes(32, "little"), sig, b"x") for y in (P + 2, P + 3)]
     y = 2
     while len(cases) < 5:
@@ -213,7 +238,7 @@ def adversarial_cases(signer: Signer):
     cases = []
     for _ in range(4):
         pk, sk = kp(rng)
-        sig = signer.sign(b"mixed order", sk)
+        sig = sodium.sign_detached(b"mixed order", sk)
         y = int.from_bytes(pk, "little") & ((1 << 255) - 1)
         mixed = ed25519._edwards_add_affine((curve._recover_x(y, pk[31] >> 7), y), t8)
         enc = bytearray(mixed[1].to_bytes(32, "little"))
@@ -224,19 +249,19 @@ def adversarial_cases(signer: Signer):
 
     rng = random.Random(48)
     pk, sk = kp(rng)
-    sig = signer.sign(b"dup", sk)
+    sig = sodium.sign_detached(b"dup", sk)
     out.append(("duplicates", [(pk, sig, b"dup")] * 35, [True] * 35))
 
     rng = random.Random(49)
     pk, sk = kp(rng)
-    sig = signer.sign(b"z", sk)
+    sig = sodium.sign_detached(b"z", sk)
     out.append(("wrong-lengths",
                 [(pk, sig[:63], b"z"), (pk[:31], sig, b"z"), (pk, sig, b"z")],
                 [False, False, True]))
     return out
 
 
-def check_adversarial(signer: Signer, device, hot_threshold: int) -> dict:
+def check_adversarial(device, hot_threshold: int) -> dict:
     """Run every adversarial case through a fresh verifier on `device`;
     raises on any verdict that differs from libsodium's.  hot_threshold
     1 << 62 keeps every key on the generic path (K-G); 1 sends every key
@@ -244,7 +269,7 @@ def check_adversarial(signer: Signer, device, hot_threshold: int) -> dict:
     v = ed25519.Ed25519BatchVerifier(chunk_size=32, hot_threshold=hot_threshold,
                                      device=device)
     report = {}
-    for name, cases, expected in adversarial_cases(signer):
+    for name, cases, expected in adversarial_cases():
         got = v.verify([c[0] for c in cases], [c[1] for c in cases],
                        [c[2] for c in cases]).tolist()
         if sodium.available():
@@ -260,20 +285,21 @@ def check_adversarial(signer: Signer, device, hot_threshold: int) -> dict:
 
 # -- main-path data ----------------------------------------------------------
 
-def make_batch(signer: Signer, n_keys: int, seed: int, msg_len: int):
+def make_batch(n_keys: int, seed: int, msg_len: int):
     """N_SIGS (pk, sig, msg), key i % n_keys, every 100th R corrupted.  With
     libsodium every message is distinct; the fallback signs one message
     per key (at least 2,048 triples) and tiles them."""
     rng = np.random.default_rng(seed)
     key_seeds = rng.integers(0, 256, size=(n_keys, 32), dtype=np.uint8)
-    keys = [signer.keypair(key_seeds[k].tobytes()) for k in range(n_keys)]
+    keys = [sodium.sign_seed_keypair(key_seeds[k].tobytes())
+            for k in range(n_keys)]
     n_distinct = N_SIGS if sodium.available() else max(2048, n_keys)
     msgs = rng.integers(0, 256, size=(n_distinct, msg_len), dtype=np.uint8)
     triples = []
     for t in range(n_distinct):
         pk, sk = keys[t % n_keys]
         m = msgs[t].tobytes()
-        triples.append((pk, signer.sign(m, sk), m))
+        triples.append((pk, sodium.sign_detached(m, sk), m))
     pks, sigs, out_msgs = [], [], []
     for i in range(N_SIGS):
         pk, sig, m = triples[i % n_distinct]
@@ -460,6 +486,225 @@ def report(run: dict) -> dict:
     """What a verify main-path line prints of a drive() result: its rate
     and call_report's numbers."""
     return {"sigs_per_s": N_SIGS / run["seconds"], **call_report(run)}
+
+
+# -- the signature seam: catchup replay's verdict half -----------------------
+
+# bench.py's replay archive (build_archive): 120 accounts, every 4th with an
+# extra ed25519 signer that co-signs its transactions, 40 payments a ledger
+SEAM_ACCOUNTS, SEAM_MULTISIG_EVERY, SEAM_TXS_PER_LEDGER = 120, 4, 40
+SEAM_LEDGERS = 1024                 # about 40,960 envelopes, 51,200 signatures
+SEAM_CHUNK = 2048                   # PreverifyPipeline's chunk (catchup.py:131)
+SEAM_DISTINCT = 4096                # envelopes signed where libsodium is missing
+SEAM_PASSPHRASE = "chip smoke seam net"
+SEAM_PATHS = (("K-G", 1 << 62), ("K-B+K-T", 4))
+
+
+def seam_envelopes(n_ledgers: int = SEAM_LEDGERS,
+                   n_distinct: int = SEAM_DISTINCT):
+    """Transaction envelopes shaped like bench.py's replay archive, each
+    v1 with one native payment, signed over the hash of its
+    TransactionSignaturePayload (TransactionFrame.content_hash), in XDR
+    bytes; every 100th signature in order is corrupted.  With libsodium
+    every envelope is signed; without, the first n_distinct are (the
+    pure-Python signer is slow) and tiled.  Returns the envelopes, each
+    account's (signers, needed weight) by key, and the fixed verdict of
+    each signature in order (False where corrupted)."""
+    nid = sha256(SEAM_PASSPHRASE.encode())
+    rng = random.Random(11)
+    masters = [sodium.sign_seed_keypair(
+        bytes([1 + (i % 250)]) * 31 + bytes([i // 250]))
+        for i in range(SEAM_ACCOUNTS)]
+    extras = {i: sodium.sign_seed_keypair(
+        bytes([200 + (i % 50)]) * 31 + bytes([i // 50]))
+        for i in range(0, SEAM_ACCOUNTS, SEAM_MULTISIG_EVERY)}
+    accounts = {}
+    for i, (pk, _) in enumerate(masters):
+        # the account's signers, then its master key (check_account_signature
+        # order); a co-signed account asks for both signatures
+        signers = [X.Signer(key=X.SignerKey.ed25519(extras[i][0]), weight=1)] \
+            if i in extras else []
+        signers.append(X.Signer(key=X.SignerKey.ed25519(pk), weight=1))
+        accounts[pk] = (signers, len(signers))
+    seqs = [(i + 2) << 32 for i in range(SEAM_ACCOUNTS)]
+    n_total = n_ledgers * SEAM_TXS_PER_LEDGER
+    n_signed = n_total if sodium.available() else min(n_total, n_distinct)
+    distinct = []          # (envelope bytes, tx, [(hint, signature)])
+    for _ in range(n_signed):
+        i = rng.randrange(SEAM_ACCOUNTS)
+        dest = masters[rng.randrange(SEAM_ACCOUNTS)][0]
+        seqs[i] += 1
+        tx = X.Transaction(
+            sourceAccount=X.MuxedAccount.ed25519(masters[i][0]), fee=100,
+            seqNum=seqs[i], cond=X.Preconditions.none(), memo=X.Memo.none(),
+            operations=[X.Operation(body=X.OperationBody.paymentOp(X.PaymentOp(
+                destination=X.muxed_from_account_id(X.AccountID.ed25519(dest)),
+                asset=X.Asset.native(), amount=1000 + rng.randrange(10 ** 6))))])
+        h = content_hash(nid, tx)
+        sigs = [(pk[28:32], sodium.sign_detached(h, sk))
+                for pk, sk in [masters[i]] + ([extras[i]] if i in extras else [])]
+        distinct.append((_envelope(tx, sigs), tx, sigs))
+    envelopes, fixed = [], []
+    for k in range(n_total):
+        env, tx, sigs = distinct[k % n_signed]
+        bad = [(len(fixed) + j) % 100 == 99 for j in range(len(sigs))]
+        fixed += [not b for b in bad]
+        if any(bad):
+            env = _envelope(tx, [(hint, bytes([sig[0] ^ 1]) + sig[1:] if b
+                                  else sig) for (hint, sig), b in zip(sigs, bad)])
+        envelopes.append(env)
+    return envelopes, accounts, fixed
+
+
+def content_hash(nid: bytes, tx) -> bytes:
+    """The hash each signature signs: SHA-256 of the transaction's
+    TransactionSignaturePayload (TransactionFrame.content_hash)."""
+    return sha256(X.TransactionSignaturePayload(
+        networkId=nid,
+        taggedTransaction=X.TransactionSignaturePayloadTaggedTransaction.tx(
+            tx)).to_xdr())
+
+
+def _envelope(tx, sigs) -> bytes:
+    return X.TransactionEnvelope.v1(X.TransactionV1Envelope(
+        tx=tx, signatures=[X.DecoratedSignature(hint=hint, signature=sig)
+                           for hint, sig in sigs])).to_xdr()
+
+
+def seam_decode(envelopes, accounts):
+    """Replay's first half: decode each envelope, hash its signature
+    payload, and pair each signature with the source account's signer
+    whose hint it carries.  Returns [(hash, signatures, source key)] and
+    the (pk, sig, hash) pairs, in signature order."""
+    nid = sha256(SEAM_PASSPHRASE.encode())
+    decoded, pairs = [], []
+    for raw in envelopes:
+        env = X.TransactionEnvelope.from_xdr(raw)
+        tx = env.value.tx
+        h = content_hash(nid, tx)
+        source = tx.sourceAccount.value
+        hints = {sg.key.value[28:32]: sg.key.value for sg in accounts[source][0]}
+        for d in env.value.signatures:
+            pairs.append((hints[d.hint], d.signature, h))
+        decoded.append((h, env.value.signatures, source))
+    return decoded, pairs
+
+
+SEAM_COUNTERS = ("accel.ed25519.table-sigs", "accel.ed25519.generic-sigs",
+                 "accel.ed25519.rejected-prep", "crypto.verify.cache-hit",
+                 "crypto.verify.recompute")
+
+
+def seam_path(decoded, pairs, accounts, oracle, hot: int, device=None) -> dict:
+    """One run of the seam on one verify path: verify_batch_async as
+    catchup replay calls it (PreverifyPipeline._enqueue_group), the verify
+    cache seeded as replay seeds it (_seed_group), then each envelope's
+    SignatureChecker answered from that cache.  Raises unless every
+    verdict and every envelope's result is the oracle's, no verdict was
+    recomputed, every ed25519 check hit the cache and every signature was
+    counted by the verifier."""
+    n = len(pairs)
+    ed25519._verifiers.clear()      # a fresh verifier, as a new replay has
+    reg = registry()
+    before = {c: reg.counter(c).value for c in SEAM_COUNTERS}
+    pks = [p for p, _, _ in pairs]
+    sigs = [g for _, g, _ in pairs]
+    msgs = [h for _, _, h in pairs]
+    run = drive(lambda: ed25519.verify_batch_async(
+        pks, sigs, msgs, chunk_size=SEAM_CHUNK, tail_floor=SEAM_CHUNK,
+        hot_threshold=hot, device=device)())
+    verdicts = run["verdicts"]
+    bad = int((verdicts != np.asarray(oracle)).sum())
+    if bad:
+        raise AssertionError(f"seam: {bad} verdicts differ from the oracle")
+    t0 = time.perf_counter()
+    crypto_keys.clear_verify_cache()
+    crypto_keys.seed_verify_cache(
+        (pks[i], sigs[i], msgs[i], bool(verdicts[i])) for i in range(n))
+    seed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = []
+    for h, dsigs, source in decoded:
+        signers, weight = accounts[source]
+        checker = SignatureChecker(23, h, dsigs)     # protocol 23
+        results.append((checker.check_signature(signers, weight),
+                        checker.check_all_signatures_used()))
+    check_s = time.perf_counter() - t0
+    crypto_keys.clear_verify_cache()
+    delta = {c: reg.counter(c).value - before[c] for c in SEAM_COUNTERS}
+    want, at = [], 0
+    for _, dsigs, _ in decoded:
+        ok = all(oracle[at:at + len(dsigs)])
+        want.append((ok, ok))
+        at += len(dsigs)
+    mismatches = sum(1 for a, b in zip(results, want) if a != b)
+    counted = delta["accel.ed25519.table-sigs"] \
+        + delta["accel.ed25519.generic-sigs"] \
+        + delta["accel.ed25519.rejected-prep"]
+    uses = {}
+    for pk in pks:
+        uses[pk] = uses.get(pk, 0) + 1
+    cold = sum(1 for pk in pks if uses[pk] < hot)
+    report = {
+        "hot_threshold": hot, "signatures": n, "envelopes": len(decoded),
+        "accepted_envelopes": sum(1 for ok, _ in results if ok),
+        "envelope_mismatches": mismatches, "counters": delta,
+        "verify": call_report(run), "verify_sigs_per_s": n / run["seconds"],
+        "seed_s": seed_s, "seed_sigs_per_s": n / seed_s,
+        "check_s": check_s, "check_sigs_per_s": n / check_s}
+    if mismatches or delta["crypto.verify.recompute"] \
+            or delta["crypto.verify.cache-hit"] != n or counted != n \
+            or delta["accel.ed25519.generic-sigs"] != cold:
+        raise AssertionError(f"seam checks failed: {report}")
+    return report
+
+
+def signature_seam(n_ledgers: int = SEAM_LEDGERS, device=None) -> dict:
+    """The signature-seam phase: envelopes built, then decoded and hashed
+    once, then both verify paths (K-G at the replay default hot_threshold
+    1 << 62, K-B + K-T at the bench's 4) through seam_path.  Each path's
+    launches are counted from 0 around its verify call; on the card each
+    path must have run on its kernels alone."""
+    t0 = time.perf_counter()
+    envelopes, accounts, fixed = seam_envelopes(n_ledgers)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded, pairs = seam_decode(envelopes, accounts)
+    decode_s = time.perf_counter() - t0
+    if len(pairs) != len(fixed):
+        raise AssertionError(f"{len(pairs)} pairs for {len(fixed)} signatures")
+    oracle = fixed
+    if sodium.available():
+        oracle = [sodium.verify_detached(g, h, p) for p, g, h in pairs]
+        if oracle != fixed:
+            raise AssertionError("libsodium disagrees with the fixed verdicts")
+    report = {"phase": "signature-seam", "signer": signer_name(),
+              "oracle": "libsodium" if sodium.available() else "fixed verdicts",
+              "cxdr": xdr_codec._cxdr is not None, "ledgers": n_ledgers,
+              "envelopes": len(envelopes), "signatures": len(pairs),
+              "corrupted": fixed.count(False), "build_s": build_s,
+              "decode_hash_s": decode_s,
+              "decode_hash_sigs_per_s": len(pairs) / decode_s}
+    on_card = device is None or torch.device(device).type == "cuda"
+    for name, hot in SEAM_PATHS:
+        path = seam_path(decoded, pairs, accounts, oracle, hot, device)
+        # the verdict path's wall time, decode to checks, and the share of
+        # it the kernels took (their summed CUDA-event time)
+        path["path_s"] = decode_s + path["verify"]["seconds"] \
+            + path["seed_s"] + path["check_s"]
+        path["kernel_share"] = path["verify"]["kernel_ms"] / 1e3 \
+            / path["path_s"]
+        n = path["verify"]["launches"]
+        generic = path["counters"]["accel.ed25519.generic-sigs"]
+        if name == "K-G":
+            ran = n["K-G"] >= 1 and n["K-B"] == n["K-T"] == 0
+        else:
+            ran = n["K-B"] >= 1 and n["K-T"] >= 1 \
+                and (n["K-G"] >= 1) == (generic > 0)
+        if on_card and not ran:
+            raise AssertionError(f"seam {name}: launches {n}")
+        report[name] = path
+    return report
 
 
 # -- quorum intersection -----------------------------------------------------
@@ -1048,11 +1293,10 @@ def run(dev) -> int:
           "ptxas": ptxas})
     check_quad_kernels(ptxas)
 
-    signer = Signer()
     t0 = time.perf_counter()
-    hot = make_batch(signer, HOT_KEYS, seed=7, msg_len=120)
-    cold = make_batch(signer, COLD_KEYS, seed=8, msg_len=120)
-    emit({"phase": "inputs", "signer": signer.name,
+    hot = make_batch(HOT_KEYS, seed=7, msg_len=120)
+    cold = make_batch(COLD_KEYS, seed=8, msg_len=120)
+    emit({"phase": "inputs", "signer": signer_name(),
           "seconds": time.perf_counter() - t0})
 
     # -- kernels against their plain versions on the card -----------------
@@ -1224,11 +1468,11 @@ def run(dev) -> int:
     # -- adversarial vectors, on the generic path and on the table path ---
     oracle = "libsodium" if sodium.available() else "fixed verdicts"
     emit({"phase": "adversarial", "oracle": oracle,
-          "cases": check_adversarial(signer, dev, 1 << 62)})
+          "cases": check_adversarial(dev, 1 << 62)})
     table_path = {"K-B": tables.build_tables_into, "K-T": tables.verify_tables,
                   "K-G": ed25519.verify_generic}
     before = {k: fn.launches for k, fn in table_path.items()}
-    cases = check_adversarial(signer, dev, 1)
+    cases = check_adversarial(dev, 1)
     launched = {k: fn.launches - before[k] for k, fn in table_path.items()}
     emit({"phase": "adversarial-table-path", "oracle": oracle,
           "hot_threshold": 1, "cases": cases, "launches": launched})
@@ -1281,11 +1525,16 @@ def run(dev) -> int:
                              f"{cold_launches}")
     cold_runs = first, steady
 
-    emit({"phase": "end-to-end", "signer": signer.name,
+    emit({"phase": "end-to-end", "signer": signer_name(),
           "hot_sigs_per_s": N_SIGS / hot_runs[0]["seconds"],
           "hot_steady_sigs_per_s": N_SIGS / hot_runs[1]["seconds"],
           "cold_sigs_per_s": N_SIGS / cold_runs[0]["seconds"],
           "cold_steady_sigs_per_s": N_SIGS / cold_runs[1]["seconds"]})
+
+    # -- the signature seam: decode, hash, verify, seed, SignatureChecker --
+    seam = signature_seam()
+    seam["nvidia_smi"] = smi
+    emit(seam)
 
     # -- quorum intersection (bench.py config 5) ----------------------------
     widest, at_65536 = quorum_kernels_vs_plain(dev)

@@ -45,6 +45,7 @@ import torch
 
 from .. import _cuda_build
 from ..device import Shards, parts, resolve_shards, upload
+from ..util.metrics import registry as _registry
 from . import field, tables as _tables
 from .curve import D, P, PointBatch, SQRT_M1, _recover_x, double_scalarmult_w2, point_encode
 
@@ -333,6 +334,7 @@ class Ed25519BatchVerifier:
         n = len(pks)
         if len(sigs) != n or len(msgs) != n:
             raise ValueError("pks, sigs and msgs differ in length")
+        _registry().histogram("accel.ed25519.batch-size").update(n)
 
         # -- vectorized encoding checks ---------------------------------
         ok = np.ones(n, dtype=bool)
@@ -382,7 +384,9 @@ class Ed25519BatchVerifier:
                                "little") % L
             h_rows[i] = h.to_bytes(32, "little")
         h_raw = np.frombuffer(b"".join(h_rows), dtype=np.uint8).reshape(n, 32)
-        self.stats["rejected_prep"] += int(n - ok.sum())
+        rejected = int(n - ok.sum())
+        self.stats["rejected_prep"] += rejected
+        _registry().counter("accel.ed25519.rejected-prep").inc(rejected)
 
         # -- hot/cold key split -----------------------------------------
         tabs = self._tables
@@ -397,11 +401,15 @@ class Ed25519BatchVerifier:
             installed = tabs.install(
                 [(pk, cache[pk]) for pk in to_install], protect=hot_pks)
             self.stats["tables_built"] += len(installed)
+            _registry().counter("accel.ed25519.tables-built") \
+                .inc(len(installed))
             hot_pks -= {pk for pk in to_install if pk not in installed}
         hot_idx = [i for i in live if bytes(pks[i]) in hot_pks]
         cold_idx = [i for i in live if bytes(pks[i]) not in hot_pks]
         self.stats["table_sigs"] += len(hot_idx)
         self.stats["generic_sigs"] += len(cold_idx)
+        _registry().counter("accel.ed25519.table-sigs").inc(len(hot_idx))
+        _registry().counter("accel.ed25519.generic-sigs").inc(len(cold_idx))
 
         shards = self._shards
         pending = []   # (shard, signature indices, verdicts)

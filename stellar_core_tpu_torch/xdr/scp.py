@@ -1,35 +1,89 @@
-"""The two XDR types the quorum-intersection checker reads.
+"""Stellar-SCP.x equivalents (reference: src/protocol-curr/xdr/Stellar-SCP.x)."""
 
-Counterparts of ``stellar_core_tpu.xdr.types.NodeID`` and
-``stellar_core_tpu.xdr.scp.SCPQuorumSet``, with the same field names, so
-the checker's code reads the JAX package's XDR objects and these alike.
-There is no codec here: only what the checker touches (``NodeID.value``,
-``SCPQuorumSet.threshold``, ``.validators``, ``.innerSets``).
-"""
+from .codec import (Int32, Opaque, Optional, Uint32, Uint64, VarArray,
+                    VarOpaque, xdr_enum, xdr_struct, xdr_union)
+from .types import Hash, NodeID, Signature
 
-from __future__ import annotations
+Value = VarOpaque()
 
-from dataclasses import dataclass
-from typing import Tuple
+SCPBallot = xdr_struct("SCPBallot", [
+    ("counter", Uint32),
+    ("value", Value),
+])
+
+SCPStatementType = xdr_enum("SCPStatementType", {
+    "SCP_ST_PREPARE": 0,
+    "SCP_ST_CONFIRM": 1,
+    "SCP_ST_EXTERNALIZE": 2,
+    "SCP_ST_NOMINATE": 3,
+})
+
+SCPNomination = xdr_struct("SCPNomination", [
+    ("quorumSetHash", Hash),
+    ("votes", VarArray(Value)),
+    ("accepted", VarArray(Value)),
+])
+
+SCPPrepare = xdr_struct("SCPPrepare", [
+    ("quorumSetHash", Hash),
+    ("ballot", SCPBallot),
+    ("prepared", Optional(SCPBallot)),
+    ("preparedPrime", Optional(SCPBallot)),
+    ("nC", Uint32),
+    ("nH", Uint32),
+], defaults={"prepared": None, "preparedPrime": None, "nC": 0, "nH": 0})
+
+SCPConfirm = xdr_struct("SCPConfirm", [
+    ("ballot", SCPBallot),
+    ("nPrepared", Uint32),
+    ("nCommit", Uint32),
+    ("nH", Uint32),
+    ("quorumSetHash", Hash),
+])
+
+SCPExternalize = xdr_struct("SCPExternalize", [
+    ("commit", SCPBallot),
+    ("nH", Uint32),
+    ("commitQuorumSetHash", Hash),
+])
+
+SCPStatementPledges = xdr_union("SCPStatementPledges", SCPStatementType, {
+    SCPStatementType.SCP_ST_PREPARE: ("prepare", SCPPrepare),
+    SCPStatementType.SCP_ST_CONFIRM: ("confirm", SCPConfirm),
+    SCPStatementType.SCP_ST_EXTERNALIZE: ("externalize", SCPExternalize),
+    SCPStatementType.SCP_ST_NOMINATE: ("nominate", SCPNomination),
+})
+
+SCPStatement = xdr_struct("SCPStatement", [
+    ("nodeID", NodeID),
+    ("slotIndex", Uint64),
+    ("pledges", SCPStatementPledges),
+])
+
+SCPEnvelope = xdr_struct("SCPEnvelope", [
+    ("statement", SCPStatement),
+    ("signature", Signature),
+])
 
 
-@dataclass(frozen=True)
-class NodeID:
-    """An ed25519 node id: its 32 raw key bytes."""
-    value: bytes
-
-    @classmethod
-    def ed25519(cls, key: bytes) -> "NodeID":
-        return cls(bytes(key))
+from .codec import XdrType as _XdrType  # noqa: E402
 
 
-@dataclass(frozen=True)
-class SCPQuorumSet:
-    """threshold of (validators + innerSets) must agree."""
-    threshold: int
-    validators: Tuple[NodeID, ...] = ()
-    innerSets: Tuple["SCPQuorumSet", ...] = ()
+class _SCPQuorumSetFwd(_XdrType):
+    _target = None
 
-    def __post_init__(self):
-        object.__setattr__(self, "validators", tuple(self.validators))
-        object.__setattr__(self, "innerSets", tuple(self.innerSets))
+    def pack_into(self, val, out):
+        self._target.pack_into(val, out)
+
+    def unpack_from(self, buf, off):
+        return self._target.unpack_from(buf, off)
+
+
+_qs_fwd = _SCPQuorumSetFwd()
+
+SCPQuorumSet = xdr_struct("SCPQuorumSet", [
+    ("threshold", Uint32),
+    ("validators", VarArray(NodeID)),
+    ("innerSets", VarArray(_qs_fwd)),
+], defaults={"validators": list, "innerSets": list})
+_SCPQuorumSetFwd._target = SCPQuorumSet._xdr_adapter()

@@ -29,29 +29,35 @@ def libsodium():
         pytest.skip("libsodium is the oracle of these checks")
 
 
-def test_python_signer_equals_libsodium(libsodium):
-    """The script signs through the port's RFC 8032 signer where libsodium
-    is missing (crypto/rfc8032.py, moved there from this script)."""
-    assert chip_smoke.Signer is rfc8032.Signer
+def test_python_signer_equals_libsodium(libsodium, monkeypatch):
+    """The script signs through crypto/sodium.py, which falls back to the
+    port's RFC 8032 code (crypto/rfc8032.py) where libsodium is missing:
+    the same keys and signatures, byte for byte."""
+    want = []
     for i in range(4):
         seed = bytes([i * 7 + 1]) * 32
         pk, sk = rfc8032.keypair(seed)
-        spk, ssk = sodium.sign_seed_keypair(seed)
-        assert pk == spk
+        assert (pk, sk) == sodium.sign_seed_keypair(seed)
         for msg in (b"", b"m", bytes(range(120))):
-            assert rfc8032.sign(msg, sk) == sodium.sign_detached(msg, ssk)
+            want.append(sodium.sign_detached(msg, sk))
+            assert rfc8032.sign(msg, sk) == want[-1]
+    monkeypatch.setattr(sodium, "_lib", None)
+    assert chip_smoke.signer_name() == "python-rfc8032"
+    got = [sodium.sign_detached(msg, sodium.sign_seed_keypair(
+        bytes([i * 7 + 1]) * 32)[1]) for i in range(4)
+        for msg in (b"", b"m", bytes(range(120)))]
+    assert got == want
 
 
 def test_adversarial_constants_are_libsodiums(libsodium, monkeypatch):
-    cases = chip_smoke.adversarial_cases(chip_smoke.Signer())
+    cases = chip_smoke.adversarial_cases()
     for name, triples, expected in cases:
         assert [sodium.verify_detached(s, m, p) for p, s, m in triples] == \
             expected, name
     # the fallback signer makes the very same vectors
-    monkeypatch.setattr(chip_smoke.sodium, "available", lambda: False)
-    signer = chip_smoke.Signer()
-    assert signer.name == "python-rfc8032"
-    assert chip_smoke.adversarial_cases(signer) == cases
+    monkeypatch.setattr(chip_smoke.sodium, "_lib", None)
+    assert chip_smoke.signer_name() == "python-rfc8032"
+    assert chip_smoke.adversarial_cases() == cases
 
 
 def test_operation_counts():
@@ -300,3 +306,85 @@ def test_widest_segment_is_the_checkers(monkeypatch):
     _, fr2, bit, rem = quorum_kernel_times.widest_depth(quorum, qmap, peak)
     assert torch.equal(fr2, fr[:count])
     assert torch.equal(bit, bits[0]) and torch.equal(rem, rems[0])
+
+
+# -- the signature-seam phase --------------------------------------------------
+
+def test_seam_envelopes_hash_as_the_reference_frames_do(libsodium):
+    """Each envelope decodes with the JAX package's XDR to the same bytes,
+    and the port's hash of its signature payload is the reference's
+    TransactionFrame.content_hash; every signature pairs with the source
+    account's signer whose hint it carries, and the fixed verdicts are
+    libsodium's."""
+    from stellar_core_tpu import xdr as RX
+    from stellar_core_tpu.testutils import network_id
+    from stellar_core_tpu.transactions.frame import TransactionFrame
+    envelopes, accounts, fixed = chip_smoke.seam_envelopes(n_ledgers=3)
+    decoded, pairs = chip_smoke.seam_decode(envelopes, accounts)
+    assert len(envelopes) == 3 * chip_smoke.SEAM_TXS_PER_LEDGER == len(decoded)
+    nid = network_id(chip_smoke.SEAM_PASSPHRASE)
+    at = 0
+    for raw, (h, dsigs, source) in zip(envelopes, decoded):
+        env = RX.TransactionEnvelope.from_xdr(raw)
+        assert env.to_xdr() == raw
+        assert TransactionFrame(nid, env).content_hash() == h
+        signers, weight = accounts[source]
+        assert weight == len(signers) == len(dsigs)
+        for d in dsigs:
+            pk, sig, msg = pairs[at]
+            assert (sig, msg) == (d.signature, h) and pk[28:32] == d.hint
+            assert pk in {s.key.value for s in signers}
+            assert sodium.verify_detached(sig, msg, pk) == fixed[at]
+            at += 1
+    assert at == len(fixed) and fixed.count(False) == len(fixed) // 100
+
+
+def test_seam_phase_on_the_cpu(libsodium):
+    """Both paths of the phase at two ledgers, on the plain versions: every
+    envelope's result is the oracle's, every check hits the cache, none is
+    recomputed, and the verifier counts every signature."""
+    rep = chip_smoke.signature_seam(n_ledgers=2, device="cpu")
+    n = rep["signatures"]
+    assert rep["envelopes"] == 80 and n > 80 and rep["oracle"] == "libsodium"
+    for name, _ in chip_smoke.SEAM_PATHS:
+        path = rep[name]
+        c = path["counters"]
+        assert path["envelope_mismatches"] == 0
+        assert c["crypto.verify.cache-hit"] == n and c["crypto.verify.recompute"] == 0
+        assert c["accel.ed25519.table-sigs"] + c["accel.ed25519.generic-sigs"] \
+            + c["accel.ed25519.rejected-prep"] == n
+        assert path["accepted_envelopes"] == 80 - rep["corrupted"]
+    assert rep["K-G"]["counters"]["accel.ed25519.generic-sigs"] == n
+    assert rep["K-B+K-T"]["counters"]["accel.ed25519.table-sigs"] > 0
+
+
+def test_seam_checks_fail_on_a_recompute(libsodium, monkeypatch):
+    """A verdict left out of the cache is recomputed on the host, and the
+    phase refuses the run."""
+    envelopes, accounts, fixed = chip_smoke.seam_envelopes(n_ledgers=1)
+    decoded, pairs = chip_smoke.seam_decode(envelopes, accounts)
+    seed = chip_smoke.crypto_keys.seed_verify_cache
+    monkeypatch.setattr(chip_smoke.crypto_keys, "seed_verify_cache",
+                        lambda entries: seed(list(entries)[1:]))
+    with pytest.raises(AssertionError, match="seam checks failed"):
+        chip_smoke.seam_path(decoded, pairs, accounts, fixed, 1 << 62, "cpu")
+
+
+def test_seam_without_libsodium_tiles_its_envelopes(monkeypatch):
+    """Where libsodium is missing, the pure-Python signer signs the first
+    n_distinct envelopes and they are tiled; the corrupted signatures
+    still follow the signature order, and the phase passes on the fixed
+    verdicts."""
+    monkeypatch.setattr(chip_smoke.sodium, "_lib", None)
+    assert chip_smoke.signer_name() == "python-rfc8032"
+    envelopes, accounts, fixed = chip_smoke.seam_envelopes(
+        n_ledgers=3, n_distinct=10)
+    decoded, pairs = chip_smoke.seam_decode(envelopes, accounts)
+    assert len(set(h for h, _, _ in decoded)) == 10
+    assert [i for i, ok in enumerate(fixed) if not ok] == \
+        list(range(99, len(fixed), 100))
+    monkeypatch.setattr(chip_smoke, "seam_envelopes",
+                        lambda n: (envelopes, accounts, fixed))
+    rep = chip_smoke.signature_seam(n_ledgers=3, device="cpu")
+    assert rep["oracle"] == "fixed verdicts"
+    assert rep["K-G"]["envelope_mismatches"] == 0

@@ -323,7 +323,7 @@ def test_key_index_outside_the_rows_rejects_only_its_signature(host):
 @pytest.fixture(scope="module")
 def adversarial():
     import chip_smoke
-    return chip_smoke.adversarial_cases(chip_smoke.Signer())
+    return chip_smoke.adversarial_cases()
 
 
 @pytest.mark.parametrize("case", range(8))

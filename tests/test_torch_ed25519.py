@@ -251,3 +251,50 @@ def test_tail_floor_keys_its_own_verifier(monkeypatch):
     a, b = TE._verifiers.values()
     assert a is not b
     assert a.stats == b.stats and a.stats["generic_sigs"] == 1
+
+
+def test_verify_entry_metrics_equal_the_references(pair, monkeypatch):
+    """The five accel.ed25519.* metrics, each side on a fresh registry of
+    its own package: one mixed batch (two keys reach the hot threshold in
+    it, six stay cold, three signatures fail the prep), then a batch of
+    cold keys alone."""
+    from stellar_core_tpu.util import metrics as r_metrics
+    from stellar_core_tpu_torch.util import metrics as p_metrics
+    ref, port = pair
+    regs = r_metrics.MetricsRegistry(), p_metrics.MetricsRegistry()
+    monkeypatch.setattr(Ej, "_registry", lambda: regs[0])
+    monkeypatch.setattr(TE, "_registry", lambda: regs[1])
+    rng = random.Random(52)
+    thr = port.hot_threshold
+    cases = []
+    for _ in range(2):
+        pk, sk = _keypair(rng)
+        for i in range(thr + 1):
+            cases.append((pk, sodium.sign_detached(bytes([i]) * 7, sk),
+                          bytes([i]) * 7))
+    for i in range(6):
+        pk, sk = _keypair(rng)
+        cases.append((pk, sodium.sign_detached(b"cold", sk), b"cold"))
+    pk, sk = _keypair(rng)
+    sig = sodium.sign_detached(b"r", sk)
+    s_plus_l = (int.from_bytes(sig[32:], "little") + L).to_bytes(32, "little")
+    cases += [(pk, sig[:32] + s_plus_l, b"r"),                # S not canonical
+              (pk, bytes(32) + sig[32:], b"r"),               # R small order
+              (pk, sig[:63], b"r")]                           # wrong length
+    rng.shuffle(cases)
+    # then three fresh keys, each under a signature made by another key
+    strangers = [(_keypair(rng)[0], sig, b"r") for _ in range(3)]
+    snaps = []
+    for batch in (cases, strangers):
+        _three_way(pair, batch)
+        snaps.append((regs[0].snapshot(), regs[1].snapshot()))
+    for want, got in snaps:
+        assert got == want
+    first, second = snaps[0][1], snaps[1][1]
+    assert first["accel.ed25519.table-sigs"]["count"] == 2 * (thr + 1)
+    assert first["accel.ed25519.generic-sigs"]["count"] == 6
+    assert first["accel.ed25519.rejected-prep"]["count"] == 3
+    assert first["accel.ed25519.tables-built"]["count"] == 2
+    assert first["accel.ed25519.batch-size"]["count"] == 1
+    assert second["accel.ed25519.generic-sigs"]["count"] == 9
+    assert second["accel.ed25519.batch-size"]["max"] == len(cases)

@@ -2,11 +2,15 @@
 
 * Importing every module of stellar_core_tpu_torch and chip_smoke leaves
   jax and stellar_core_tpu out of sys.modules (fresh subprocess).
+* No ``import`` or ``from`` statement at any depth of any of those files
+  names jax or stellar_core_tpu (an AST walk: a function-level import
+  runs only when the function does, so the subprocess cannot see it).
 * With no device argument and no CUDA, the entry points raise.
 * The CUDA wrappers never run their plain version on a tensor that is not
   on the CPU, and a missing nvcc is an error, not a fallback.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -25,10 +29,23 @@ PORT_MODULES = sorted(
     for p in (ROOT / "stellar_core_tpu_torch").rglob("*.py"))
 
 
+FOUNDATIONS = {f"stellar_core_tpu_torch.{m}" for m in (
+    "_native_build", "transactions.signature_checker",
+    *(f"util.{u}" for u in ("scheduler", "clock", "lockorder", "cache",
+                            "metrics", "assertions", "logging", "racetrace",
+                            "tracing", "eventlog", "detguard", "perf")),
+    *(f"crypto.{c}" for c in ("sha", "strkey", "sodium", "keys")),
+    *(f"xdr.{x}" for x in ("codec", "types", "contract", "ledger_entries",
+                           "transaction", "scp", "ledger", "overlay")))}
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "stellar_core_tpu_torch.accel.ed25519" in PORT_MODULES
     assert {"stellar_core_tpu_torch.graft_entry",
-            "stellar_core_tpu_torch.crypto.rfc8032"} <= set(PORT_MODULES)
+            "stellar_core_tpu_torch.crypto.rfc8032",
+            "stellar_core_tpu_torch.xdr", "stellar_core_tpu_torch.util",
+            "stellar_core_tpu_torch.transactions"} | FOUNDATIONS \
+        <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES + ['chip_smoke']!r}:\n"
@@ -41,6 +58,75 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == root or name.startswith(root + ".")
+               for root in ("jax", "stellar_core_tpu"))
+
+
+def forbidden_imports(source: str, module: str):
+    """(line, what) of each import, at any depth of `source`, of jax or of
+    stellar_core_tpu (not stellar_core_tpu_torch), relative imports
+    resolved against `module`'s package and import_module / __import__
+    calls on a constant name included."""
+    package = module.split(".")[:-1]
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                if node.level - 1 > len(package) - 1:
+                    found.append((node.lineno, "relative import past the "
+                                  "package root"))
+                    continue
+                base = package[:len(package) - (node.level - 1)]
+                names = [".".join(base + ([node.module] if node.module
+                                          else []))]
+            else:
+                names = [node.module]
+            names += [f"{names[0]}.{a.name}" for a in node.names]
+        elif isinstance(node, ast.Call) and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str) \
+                and ((isinstance(node.func, ast.Attribute)
+                      and node.func.attr == "import_module")
+                     or (isinstance(node.func, ast.Name)
+                         and node.func.id == "__import__")):
+            names = [node.args[0].value]
+        found += [(node.lineno, n) for n in names if _forbidden(n)]
+    return found
+
+
+def test_no_import_of_jax_or_the_jax_package_at_any_depth():
+    files = sorted((ROOT / "stellar_core_tpu_torch").rglob("*.py"))
+    assert len(files) == len(PORT_MODULES) > 40
+    bad = {}
+    for path in files + [ROOT / "chip_smoke.py"]:
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        found = forbidden_imports(path.read_text(), ".".join(parts))
+        if found:
+            bad[str(path.relative_to(ROOT))] = found
+    assert bad == {}
+
+
+@pytest.mark.parametrize("source, flagged", [
+    ("def f():\n    from stellar_core_tpu import _capply\n", True),
+    ("def f():\n    if x:\n        import jax.numpy as jnp\n", True),
+    ("from stellar_core_tpu.xdr import scp\n", True),
+    ("import importlib\nimportlib.import_module('stellar_core_tpu.accel')\n",
+     True),
+    ("__import__('jax')\n", True),
+    ("from ... import x\n", True),          # past the package root
+    ("from stellar_core_tpu_torch import _cxdr\n", False),
+    ("import jaxtyping\nimport stellar_core_tpu_torch.xdr\n", False),
+    ("from .. import xdr as X\nfrom .codec import pack\n", False),
+])
+def test_the_import_walk_finds_what_it_should(source, flagged):
+    found = forbidden_imports(source, "stellar_core_tpu_torch.xdr.codec")
+    assert bool(found) == flagged, found
 
 
 def _one_signature():
