@@ -47,6 +47,19 @@ with every 100th signature's R corrupted (655 bad, 64,881 accepted); and
   into the verify cache and checked by ``SignatureChecker``: every
   envelope's result must be the oracle's, with no verdict recomputed;
 
+* ledger apply, catchup replay's apply half (ledger-apply): bench.py's
+  replay archive at the replay bench's size (120 accounts, every 4th
+  co-signed, 40 payments a ledger, 1,100 payment ledgers, 1,150 ledgers
+  to a checkpoint boundary; 55,020 signatures, every 100th payment
+  signature corrupted) closed once on the host as the oracle, then
+  replayed from genesis a checkpoint of 64 ledgers at a time: envelopes
+  decoded, signatures paired as catchup's PreverifyPipeline pairs them,
+  ``verify_batch_async`` (K-G, then K-B + K-T), the verdicts seeded, each
+  ledger closed by ``LedgerManager.close_ledger`` against the oracle's
+  hash; then once more through the native apply engine (native/capply.c)
+  where libsodium loads.  Every ledger's hash and result set must be the
+  oracle's, with no verdict recomputed;
+
 * the graft entry (stellar_core_tpu_torch/graft_entry.py): K-W, the
   windows form of K-G, against its plain version on the cold path's 8,192
   signatures, its fused accept count, and ``entry()``'s step; then the
@@ -84,10 +97,17 @@ from stellar_core_tpu_torch import xdr as X
 from stellar_core_tpu_torch.accel import curve, ed25519, field, quorum, tables
 from stellar_core_tpu_torch.crypto import keys as crypto_keys
 from stellar_core_tpu_torch.crypto import sodium
+from stellar_core_tpu_torch.crypto.keys import SecretKey
 from stellar_core_tpu_torch.crypto.sha import sha256
 from stellar_core_tpu_torch.device import Shards, parts
 from stellar_core_tpu_torch.herder.quorum_intersection import (
     QuorumIntersectionChecker)
+from stellar_core_tpu_torch.ledger import native_apply
+from stellar_core_tpu_torch.ledger.manager import LedgerManager
+from stellar_core_tpu_torch.testutils import (TestAccount, build_tx,
+                                              create_account_op,
+                                              native_payment_op)
+from stellar_core_tpu_torch.transactions.frame import TransactionFrame
 from stellar_core_tpu_torch.transactions.signature_checker import (
     SignatureChecker)
 from stellar_core_tpu_torch.util.metrics import registry
@@ -694,16 +714,421 @@ def signature_seam(n_ledgers: int = SEAM_LEDGERS, device=None) -> dict:
             + path["seed_s"] + path["check_s"]
         path["kernel_share"] = path["verify"]["kernel_ms"] / 1e3 \
             / path["path_s"]
-        n = path["verify"]["launches"]
-        generic = path["counters"]["accel.ed25519.generic-sigs"]
-        if name == "K-G":
-            ran = n["K-G"] >= 1 and n["K-B"] == n["K-T"] == 0
-        else:
-            ran = n["K-B"] >= 1 and n["K-T"] >= 1 \
-                and (n["K-G"] >= 1) == (generic > 0)
-        if on_card and not ran:
-            raise AssertionError(f"seam {name}: launches {n}")
+        if on_card:
+            check_path_kernels(f"seam {name}", path["verify"]["launches"],
+                               path["counters"])
         report[name] = path
+    return report
+
+
+def check_path_kernels(what: str, launches: dict, counters: dict) -> None:
+    """A verify path ran on its kernels alone: the K-G path (`what` ends
+    in K-G) on K-G, the K-B + K-T path on K-B and K-T, and on K-G only
+    where some signatures' keys stayed cold."""
+    n = launches
+    if what.endswith("K-G"):
+        ran = n["K-G"] >= 1 and n["K-B"] == n["K-T"] == 0
+    else:
+        ran = n["K-B"] >= 1 and n["K-T"] >= 1 and (n["K-G"] >= 1) \
+            == (counters["accel.ed25519.generic-sigs"] > 0)
+    if not ran:
+        raise AssertionError(f"{what}: launches {n}")
+
+
+# -- ledger apply: catchup replay's apply half on the card's verdicts --------
+
+# bench.py's replay archive (build_archive, :166-244) at the replay bench's
+# size (:2539-2542): 120 accounts created 50 to a transaction, every 4th
+# given an extra ed25519 signer by setOptions that co-signs its payments,
+# 40 native payments a ledger drawn with random.Random(11), 1,100 payment
+# ledgers, then empty ledgers up to a checkpoint boundary; every 100th
+# payment signature corrupted
+APPLY_ACCOUNTS, APPLY_MULTISIG_EVERY, APPLY_TXS_PER_LEDGER = 120, 4, 40
+APPLY_PAYMENT_LEDGERS = 1100
+APPLY_GROUP = 64                    # a checkpoint's ledgers
+APPLY_PASSPHRASE = "chip smoke apply net"
+APPLY_PATHS = (("K-G", 1 << 62), ("K-B+K-T", 4))
+APPLY_ORACLE_CHECK_EVERY = 50
+
+
+def apply_archive(n_payment_ledgers: int = APPLY_PAYMENT_LEDGERS,
+                  n_accounts: int = APPLY_ACCOUNTS,
+                  txs_per_ledger: int = APPLY_TXS_PER_LEDGER,
+                  group: int = APPLY_GROUP) -> dict:
+    """The oracle run: bench.py's build_archive chain closed on the host
+    by LedgerManager(nid, invariant_manager=None), each ledger's
+    signatures seeded into the verify cache before its close with the
+    verdicts fixed by construction (False where corrupted).  Returns, a
+    ledger each, its sequence number, close time, envelopes (XDR bytes),
+    hash and the hash of its TransactionResultSet; the result codes
+    counted; each (pk, sig, hash) pair's fixed verdict; the set-up's
+    seconds.  1 in APPLY_ORACLE_CHECK_EVERY fixed verdicts, and the first
+    rejections, are checked with sodium.verify_detached (libsodium, or its
+    RFC 8032 fallback).  The chain ends on a ledger that closes a group of
+    `group` ledgers (a checkpoint boundary at 64)."""
+    t_start = time.perf_counter()
+    nid = sha256(APPLY_PASSPHRASE.encode())
+    mgr = LedgerManager(nid, invariant_manager=None)
+    mgr.start_new_ledger()
+    genesis = mgr.lcl_hash
+    rsk = mgr.root_account_secret()
+    top = TestAccount(mgr, rsk, mgr.root.get_entry(X.account_key_xdr(
+        rsk.public_key.ed25519)).data.value.seqNum)
+    sks = [SecretKey(bytes([1 + (i % 250)]) * 31 + bytes([i // 250]))
+           for i in range(n_accounts)]
+    extras = {i: SecretKey(bytes([200 + (i % 50)]) * 31 + bytes([i // 50]))
+              for i in range(0, n_accounts, APPLY_MULTISIG_EVERY)}
+    # the account created in ledger 2 + k starts at seqNum (2 + k) << 32
+    accts = [TestAccount(mgr, sk, (2 + i // 50) << 32)
+             for i, sk in enumerate(sks)]
+    n_sigs = [0]
+
+    def pairs_of(frame, signers, corrupt: bool):
+        """The frame's (pk, sig, hash, fixed verdict) a signature, every
+        100th payment signature corrupted first."""
+        out = []
+        for sk, d in zip(signers, frame.envelope.value.signatures):
+            bad = corrupt and n_sigs[0] % 100 == 99
+            if bad:
+                d.signature = bytes([d.signature[0] ^ 1]) + d.signature[1:]
+            n_sigs[0] += corrupt
+            out.append((sk.public_key.ed25519, d.signature,
+                        frame.content_hash(), not bad))
+        return out
+
+    # the set-up ledgers: creations, then the co-signers' setOptions
+    plan = []
+    for start in range(0, n_accounts, 50):
+        f = top.tx([create_account_op(X.AccountID.ed25519(
+            sk.public_key.ed25519), 10 ** 12) for sk in sks[start:start + 50]])
+        plan.append(([f], pairs_of(f, [rsk], False)))
+    setopts = [(accts[i].tx([X.Operation(body=X.OperationBody.setOptionsOp(
+        X.SetOptionsOp(signer=X.Signer(
+            key=X.SignerKey.ed25519(ex.public_key.ed25519), weight=1))))]),
+        sks[i]) for i, ex in extras.items()]
+    for start in range(0, len(setopts), 40):
+        chunk = setopts[start:start + 40]
+        plan.append(([f for f, _ in chunk], [p for f, sk in chunk
+                                             for p in pairs_of(f, [sk], False)]))
+    t_sign = time.perf_counter()
+    rng = random.Random(11)
+    for _ in range(n_payment_ledgers):
+        frames, pairs = [], []
+        for _ in range(txs_per_ledger):
+            i = rng.randrange(n_accounts)
+            a = accts[i]
+            op = native_payment_op(accts[rng.randrange(n_accounts)].account_id,
+                                   1000 + rng.randrange(10 ** 6))
+            signers = [a.secret] + ([extras[i]] if i in extras else [])
+            f = build_tx(nid, a.secret, a.next_seq(), [op], signers=signers)
+            frames.append(f)
+            pairs += pairs_of(f, signers, True)
+        plan.append((frames, pairs))
+    sign_s = time.perf_counter() - t_sign
+    t_close = time.perf_counter()
+    ledgers, fixed, codes = [], {}, {}
+    corrupted_txs = {h for _, pairs in plan for _, _, h, ok in pairs
+                     if not ok}
+    close_time, at = 1_600_000_000, 0
+    while at < len(plan) or (mgr.lcl_header.ledgerSeq + 1) % group:
+        frames, pairs = plan[at] if at < len(plan) else ([], [])
+        at += 1
+        crypto_keys.seed_verify_cache(pairs)
+        close_time += 5
+        arts = mgr.close_ledger(frames, close_time)
+        results = arts.result_entry.txResultSet
+        for pair in results.results:
+            name = pair.result.result.switch.name
+            codes[name] = codes.get(name, 0) + 1
+            if pair.transactionHash in corrupted_txs and name == "txSUCCESS":
+                raise AssertionError("a transaction with a corrupted "
+                                     "signature succeeded")
+        ledgers.append({"seq": mgr.lcl_header.ledgerSeq,
+                        "close_time": close_time,
+                        "envelopes": [f.envelope.to_xdr() for f in frames],
+                        "hash": mgr.lcl_hash,
+                        "results_hash": sha256(results.to_xdr())})
+        fixed.update(((pk, sig, h), ok) for pk, sig, h, ok in pairs)
+    close_s = time.perf_counter() - t_close
+    crypto_keys.clear_verify_cache()
+    t_check = time.perf_counter()
+    items = list(fixed.items())
+    checked = items[::APPLY_ORACLE_CHECK_EVERY] \
+        + [kv for kv in items if not kv[1]][:8]
+    wrong = sum(1 for (pk, sig, h), ok in checked
+                if sodium.verify_detached(sig, h, pk) != ok)
+    if wrong:
+        raise AssertionError(f"{wrong} fixed verdicts are not the verifier's")
+    return {"nid": nid, "genesis": genesis, "ledgers": ledgers,
+            "codes": codes, "fixed": fixed,
+            "corrupted": sum(1 for ok in fixed.values() if not ok),
+            "checked_verdicts": len(checked), "sign_s": sign_s,
+            "oracle_close_s": close_s,
+            "check_s": time.perf_counter() - t_check,
+            "build_s": time.perf_counter() - t_start}
+
+
+def apply_pairs(frames, root, harvested: dict):
+    """PreverifyPipeline.dispatch's pairing (stellar_core_tpu/catchup/
+    catchup.py:360-438), this phase's own copy: each signature's hint
+    against the ed25519 signers of the transaction's source accounts, read
+    from `root` (the state before the group), plus every ed25519 signer
+    the SET_OPTIONS operations name, harvested into `harvested` (hint ->
+    keys) before pairing and kept across groups.  Returns (pks, sigs,
+    msgs, signatures seen)."""
+    cache = {}
+
+    def signers_of(aid: bytes):
+        if aid not in cache:
+            entry = root.get_entry(X.account_key_xdr(aid))
+            cache[aid] = [] if entry is None else [
+                sg.key.value for sg in entry.data.value.signers
+                if sg.key.switch == X.SignerKeyType.SIGNER_KEY_TYPE_ED25519]
+        return cache[aid]
+
+    for frame in frames:
+        for op in frame.operations:
+            if op.body.switch == X.OperationType.SET_OPTIONS:
+                signer = op.body.value.signer
+                if signer is not None and signer.key.switch == \
+                        X.SignerKeyType.SIGNER_KEY_TYPE_ED25519:
+                    keys = harvested.setdefault(signer.key.value[28:32], [])
+                    if signer.key.value not in keys:
+                        keys.append(signer.key.value)
+    pks, sigs, msgs, total = [], [], [], 0
+    for frame in frames:
+        h = frame.content_hash()
+        ids = [frame.source_account_id().value]
+        if hasattr(frame, "inner"):
+            ids.append(frame.inner.source_account_id().value)
+        ids += [X.muxed_to_account_id(op.sourceAccount).value
+                for op in frame.operations if op.sourceAccount is not None]
+        candidates = list(ids)
+        for aid in ids:
+            candidates += signers_of(aid)
+        total += len(frame.signatures)
+        for d in frame.signatures:
+            seen = set()
+            for pk in candidates + harvested.get(d.hint, []):
+                if d.hint == pk[28:32] and pk not in seen:
+                    seen.add(pk)
+                    pks.append(pk)
+                    sigs.append(d.signature)
+                    msgs.append(h)
+    return pks, sigs, msgs, total
+
+
+class _CountedChecks:
+    """Counts the ed25519 checks a close makes: crypto.keys.verify_sig
+    wrapped while the context is open."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        self._orig = crypto_keys.verify_sig
+
+        def verify_sig(*args):
+            self.calls += 1
+            return self._orig(*args)
+
+        crypto_keys.verify_sig = verify_sig
+        return self
+
+    def __exit__(self, *exc):
+        crypto_keys.verify_sig = self._orig
+
+
+def apply_replay(archive: dict, hot: int, native: bool = False,
+                 device=None, group: int = APPLY_GROUP) -> dict:
+    """One replay of the oracle's chain from genesis on a fresh
+    LedgerManager, the verify cache cleared, each group of `group`
+    ledgers (a checkpoint) in four steps: decode its envelopes and pair
+    its signatures (apply_pairs; on the native run the engine's
+    extract_pairs), verify_batch_async as catchup.py:512-530 calls it
+    (chunk 2,048, `hot` as hot_threshold), seed the verdicts (the process
+    verify cache; on the native run the engine's), close each ledger
+    (close_ledger with the oracle's hash as expected_ledger_hash, which
+    raises on a mismatch; on the native run through the engine, its hash
+    compared after each close).  Raises unless every ledger's hash and
+    result set equal the oracle's, every verdict is the oracle's, the
+    result codes count as the oracle's, and (Python runs) no verdict was
+    recomputed, every ed25519 check hit the cache and the verifier counted
+    every pair.  Launches are counted from 0 and each launch's CUDA-event
+    time summed over the run."""
+    nid = archive["nid"]
+    mgr = LedgerManager(nid, invariant_manager=None)
+    mgr.start_new_ledger()
+    if mgr.lcl_hash != archive["genesis"]:
+        raise AssertionError("replay genesis differs from the oracle's")
+    if native and not mgr.attach_native_close():
+        raise AssertionError("native close did not attach")
+    bridge = mgr.native_closer.bridge if native else None
+    ed25519._verifiers.clear()      # a fresh verifier, as a new replay has
+    crypto_keys.clear_verify_cache()
+    reg = registry()
+    before = {c: reg.counter(c).value for c in SEAM_COUNTERS}
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+    _cuda_build.launch_events = []
+    steps = dict.fromkeys(("pair", "verify", "seed", "close"), 0.0)
+    codes, harvested = {}, {}
+    n_pairs = n_sigs = bad_verdicts = 0
+    ledgers = archive["ledgers"]
+    groups = {}
+    for i, led in enumerate(ledgers):
+        groups.setdefault(led["seq"] // group, []).append(i)
+    t_run = time.perf_counter()
+    try:
+        with _CountedChecks() as checks:
+            for idx in groups.values():
+                t0 = time.perf_counter()
+                frames = [[TransactionFrame.make_from_wire(
+                    nid, X.TransactionEnvelope.from_xdr(raw))
+                    for raw in ledgers[i]["envelopes"]] for i in idx]
+                if native:
+                    recs = [X.TransactionHistoryEntry(
+                        ledgerSeq=ledgers[i]["seq"], txSet=X.TransactionSet(
+                            previousLedgerHash=(ledgers[i - 1]["hash"] if i
+                                                else archive["genesis"]),
+                            txs=[f.envelope for f in fl])).to_xdr()
+                        for i, fl in zip(idx, frames)]
+                    pks, sigs, msgs, total = bridge.extract_pairs(recs)
+                else:
+                    pks, sigs, msgs, total = apply_pairs(
+                        [f for fl in frames for f in fl], mgr.root, harvested)
+                t1 = time.perf_counter()
+                verdicts = ed25519.verify_batch_async(
+                    pks, sigs, msgs, chunk_size=SEAM_CHUNK,
+                    tail_floor=SEAM_CHUNK, hot_threshold=hot,
+                    device=device)() if pks else np.zeros(0, dtype=bool)
+                t2 = time.perf_counter()
+                if native:
+                    bridge.seed_verdicts(pks, sigs, msgs, verdicts)
+                else:
+                    crypto_keys.seed_verify_cache(
+                        (pks[k], sigs[k], msgs[k], bool(verdicts[k]))
+                        for k in range(len(pks)))
+                t3 = time.perf_counter()
+                for i, fl in zip(idx, frames):
+                    led = ledgers[i]
+                    arts = mgr.close_ledger(
+                        fl, led["close_time"],
+                        expected_ledger_hash=None if native else led["hash"])
+                    results = arts.result_entry.txResultSet
+                    if mgr.lcl_hash != led["hash"] or \
+                            sha256(results.to_xdr()) != led["results_hash"]:
+                        raise AssertionError(
+                            f"ledger {led['seq']} differs from the oracle's")
+                    for pair in results.results:
+                        name = pair.result.result.switch.name
+                        codes[name] = codes.get(name, 0) + 1
+                t4 = time.perf_counter()
+                fixed = archive["fixed"]
+                bad_verdicts += sum(
+                    1 for k in range(len(pks))
+                    if bool(verdicts[k]) != fixed.get(
+                        (pks[k], sigs[k], msgs[k]), False))
+                n_pairs += len(pks)
+                n_sigs += total
+                for k, dt in zip(steps, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                    steps[k] += dt
+        run_s = time.perf_counter() - t_run
+        events = _cuda_build.launch_events
+    finally:
+        _cuda_build.launch_events = None
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    kernel_ms = sum(start.elapsed_time(end) for _, start, end in events)
+    delta = {c: reg.counter(c).value - before[c] for c in SEAM_COUNTERS}
+    n = len(ledgers)
+    report = {
+        "hot_threshold": hot, "engine": "native" if native else "python",
+        "ledgers": n, "signatures": n_sigs, "pairs": n_pairs,
+        "verdict_mismatches": bad_verdicts, "codes": codes,
+        "seconds": run_s, "ledgers_per_s": n / run_s,
+        "steps_s": steps,
+        "steps_ledgers_per_s": {k: n / v if v else None
+                                for k, v in steps.items()},
+        "counters": delta, "ed25519_checks": checks.calls,
+        "launches": {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()},
+        "kernel_ms": kernel_ms, "kernel_share": kernel_ms / 1e3 / run_s,
+        "final_hash": mgr.lcl_hash.hex()}
+    counted = delta["accel.ed25519.table-sigs"] \
+        + delta["accel.ed25519.generic-sigs"] \
+        + delta["accel.ed25519.rejected-prep"]
+    fails = []
+    if bad_verdicts:
+        fails.append("verdicts differ from the oracle's")
+    if codes != archive["codes"]:
+        fails.append("result codes differ from the oracle's")
+    if counted != n_pairs:
+        fails.append("the verifier did not count every pair")
+    if mgr.lcl_hash != ledgers[-1]["hash"]:
+        fails.append("the final hash differs from the oracle's")
+    if native:
+        report["engine_stats"] = bridge.stats()
+    elif delta["crypto.verify.recompute"] \
+            or delta["crypto.verify.cache-hit"] != checks.calls:
+        fails.append("a verdict was recomputed or a check missed the cache")
+    if fails:
+        raise AssertionError(f"ledger-apply checks failed ({fails}): "
+                             f"{report}")
+    return report
+
+
+def ledger_apply(n_payment_ledgers: int = APPLY_PAYMENT_LEDGERS,
+                 device=None, n_accounts: int = APPLY_ACCOUNTS,
+                 txs_per_ledger: int = APPLY_TXS_PER_LEDGER,
+                 group: int = APPLY_GROUP) -> dict:
+    """The ledger-apply phase: the oracle's chain (apply_archive), then
+    three replays of it: the Python close on K-G's verdicts (hot_threshold
+    1 << 62, the replay default), on K-B + K-T's (4, the bench's), and the
+    native engine's close on K-G's where libsodium loads (elsewhere the
+    phase checks that native close refuses to attach, and says so).  On
+    the card each path must have run on its kernels alone."""
+    archive = apply_archive(n_payment_ledgers, n_accounts, txs_per_ledger,
+                            group)
+    n = len(archive["ledgers"])
+    report = {"phase": "ledger-apply", "signer": signer_name(),
+              "cxdr": xdr_codec._cxdr is not None,
+              "capply": native_apply._capply is not None,
+              "libsodium": native_apply.libsodium_loads(),
+              "ledgers": n, "payment_ledgers": n_payment_ledgers,
+              "accounts": n_accounts, "txs_per_ledger": txs_per_ledger,
+              "group": group, "signatures": len(archive["fixed"]),
+              "corrupted": archive["corrupted"], "codes": archive["codes"],
+              "final_hash": archive["ledgers"][-1]["hash"].hex(),
+              "oracle": {k: archive[k] for k in (
+                  "checked_verdicts", "sign_s", "oracle_close_s", "check_s",
+                  "build_s")}}
+    if archive["corrupted"] == 0:
+        raise AssertionError("no signature was corrupted")
+    on_card = device is None or torch.device(device).type == "cuda"
+    for name, hot in APPLY_PATHS:
+        run = apply_replay(archive, hot, device=device, group=group)
+        if on_card:
+            check_path_kernels(f"ledger-apply {name}", run["launches"],
+                               run["counters"])
+        report[name] = run
+    if native_apply.native_apply_available():
+        run = apply_replay(archive, 1 << 62, native=True, device=device,
+                           group=group)
+        if on_card:
+            check_path_kernels("ledger-apply native, K-G", run["launches"],
+                               run["counters"])
+        report["native"] = run
+    else:
+        mgr = LedgerManager(archive["nid"], invariant_manager=None)
+        mgr.start_new_ledger()
+        if mgr.attach_native_close():
+            raise AssertionError("native close attached without libsodium")
+        report["native"] = {
+            "ran": False,
+            "why": ("the engine did not build" if native_apply._capply is None
+                    else "libsodium does not load, so an engine cache miss "
+                         "would reject a valid signature; every close ran "
+                         "in Python")}
     return report
 
 
@@ -1535,6 +1960,11 @@ def run(dev) -> int:
     seam = signature_seam()
     seam["nvidia_smi"] = smi
     emit(seam)
+
+    # -- ledger apply: the replay's apply half on the card's verdicts ------
+    applied = ledger_apply()
+    applied["nvidia_smi"] = smi
+    emit(applied)
 
     # -- quorum intersection (bench.py config 5) ----------------------------
     widest, at_65536 = quorum_kernels_vs_plain(dev)

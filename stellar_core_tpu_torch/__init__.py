@@ -5,8 +5,12 @@ offloads (``stellar_core_tpu.accel``) on an NVIDIA H100 through kernels
 written by hand in CUDA C++ (``csrc/``), each with a plain PyTorch version
 beside it, and keeps its own copies of the host modules around that offload
 (``util``, ``crypto``, ``xdr`` with the native serializer native/cxdr.c,
-``transactions.signature_checker``).  It imports ``torch``, numpy and the
-standard library only: never ``jax`` and nothing of ``stellar_core_tpu``.
+``transactions.signature_checker``) and of the state and apply layer a
+ledger close runs (``bucket``, ``transactions``, ``soroban``,
+``invariant``, ``ledger`` with the native apply engine native/capply.c,
+``database``, ``history.archive``, ``herder.upgrades``).  It imports
+``torch``, numpy and the standard library only: never ``jax`` and nothing
+of ``stellar_core_tpu``.
 Where it needs code from the JAX package it keeps its own copy, under the
 same module name so a reader can find each counterpart.
 

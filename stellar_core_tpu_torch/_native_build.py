@@ -1,12 +1,16 @@
-"""Build-on-demand for the native XDR codec (native/cxdr.c).
+"""Build-on-demand for the native XDR codec (native/cxdr.c) and the
+native apply engine (native/capply.c).
 
-Counterpart of stellar_core_tpu/_native_build.py, reduced to ``_cxdr``.
-The compiled library is not tracked in git: at first use ``load("_cxdr")``
-compiles the repo-root native/cxdr.c with the host C compiler into
-build/torch_native/, rebuilds it there whenever the source is newer, and
-imports it as ``stellar_core_tpu_torch._cxdr``.  A missing compiler or a
-failed build raises ImportError, and the codec then runs its pure-Python
-path (xdr/codec.py), as the reference's does.
+Counterpart of stellar_core_tpu/_native_build.py, reduced to ``_cxdr`` and
+``_capply``.  The compiled libraries are not tracked in git: at first use
+``load(mod)`` compiles the repo-root C source with the host C compiler
+into build/torch_native/, rebuilds it there whenever the source is newer,
+and imports it as ``stellar_core_tpu_torch.<mod>``.  A missing compiler or
+a failed build raises ImportError, and the caller then runs its
+pure-Python path (xdr/codec.py, the Python ledger close), as the
+reference's does.  The engine dlopen()s libsodium; a Python extension
+resolves dlopen against the interpreter, which always has it, so no
+``-ldl`` is linked.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ REPO = Path(__file__).resolve().parent.parent
 BUILD_DIR = REPO / "build" / "torch_native"
 
 # module name -> C source (relative to the repo root)
-EXTENSIONS = {"_cxdr": "native/cxdr.c"}
+EXTENSIONS = {"_cxdr": "native/cxdr.c",
+              "_capply": "native/capply.c"}
 
 # setup.py's flags: the sources are warning-clean under them
 _CFLAGS = ["-O2", "-Wall", "-Wextra"]

@@ -29,6 +29,17 @@ def libsodium():
         pytest.skip("libsodium is the oracle of these checks")
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain versions are many small tensor operations: one thread
+    each runs them as fast as eight, and six test workers of eight
+    threads each on one machine slow them a hundredfold."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_python_signer_equals_libsodium(libsodium, monkeypatch):
     """The script signs through crypto/sodium.py, which falls back to the
     port's RFC 8032 code (crypto/rfc8032.py) where libsodium is missing:
@@ -388,3 +399,173 @@ def test_seam_without_libsodium_tiles_its_envelopes(monkeypatch):
     rep = chip_smoke.signature_seam(n_ledgers=3, device="cpu")
     assert rep["oracle"] == "fixed verdicts"
     assert rep["K-G"]["envelope_mismatches"] == 0
+
+
+# -- the ledger-apply phase ----------------------------------------------------
+
+# a small chain: 12 accounts (3 co-signed), 20 payment ledgers of 5
+# payments (128 signatures, one corrupted), groups of 8 ledgers
+APPLY_SMALL = dict(n_payment_ledgers=20, n_accounts=12, txs_per_ledger=5,
+                   group=8)
+
+
+@pytest.fixture(scope="module")
+def small_archive():
+    args = dict(APPLY_SMALL)
+    return chip_smoke.apply_archive(args.pop("n_payment_ledgers"), **args)
+
+
+def test_apply_archive_is_the_references_chain(small_archive):
+    """The oracle chain's envelopes, closed by the JAX package's
+    LedgerManager at the same close times, give the same ledger hashes and
+    result sets; the corrupted signature's transaction fails; the chain
+    ends on a group boundary."""
+    from stellar_core_tpu import xdr as RX
+    from stellar_core_tpu.ledger.manager import LedgerManager
+    from stellar_core_tpu.transactions.frame import TransactionFrame
+    from stellar_core_tpu.crypto.sha import sha256
+    a = small_archive
+    assert a["corrupted"] == 1 and len(a["fixed"]) == 128
+    assert a["codes"]["txBAD_AUTH"] >= 1
+    mgr = LedgerManager(a["nid"], invariant_manager=None)
+    mgr.start_new_ledger()
+    assert mgr.lcl_hash == a["genesis"]
+    for led in a["ledgers"]:
+        frames = [TransactionFrame.make_from_wire(
+            a["nid"], RX.TransactionEnvelope.from_xdr(raw))
+            for raw in led["envelopes"]]
+        arts = mgr.close_ledger(frames, led["close_time"])
+        assert mgr.lcl_hash == led["hash"]
+        assert sha256(arts.result_entry.txResultSet.to_xdr()) \
+            == led["results_hash"]
+    assert (a["ledgers"][-1]["seq"] + 1) % APPLY_SMALL["group"] == 0
+    assert len(a["ledgers"]) == 1 + 1 + APPLY_SMALL["n_payment_ledgers"]
+
+
+def test_apply_pairs_is_the_engines_pairing(small_archive):
+    """The phase's copy of PreverifyPipeline's pairing gives, group by
+    group, the pairs the native engine's extract_pairs gives (which keeps
+    the same contract), and every signature of the chain is paired."""
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.ledger import native_apply
+    from stellar_core_tpu_torch.ledger.manager import LedgerManager
+    from stellar_core_tpu_torch.transactions.frame import TransactionFrame
+    if not native_apply.native_apply_available():
+        pytest.skip("the native engine did not build or libsodium does "
+                    "not load")
+    a = small_archive
+    mgr = LedgerManager(a["nid"], invariant_manager=None)
+    mgr.start_new_ledger()
+    assert mgr.attach_native_close()
+    bridge = mgr.native_closer.bridge
+    harvested, n_pairs = {}, 0
+    groups = {}
+    for led in a["ledgers"]:
+        groups.setdefault(led["seq"] // APPLY_SMALL["group"], []).append(led)
+    for leds in groups.values():
+        frames = [[TransactionFrame.make_from_wire(
+            a["nid"], X.TransactionEnvelope.from_xdr(raw))
+            for raw in led["envelopes"]] for led in leds]
+        recs = [X.TransactionHistoryEntry(
+            ledgerSeq=led["seq"], txSet=X.TransactionSet(
+                previousLedgerHash=bytes(32),
+                txs=[f.envelope for f in fl])).to_xdr()
+            for led, fl in zip(leds, frames)]
+        ours = chip_smoke.apply_pairs([f for fl in frames for f in fl],
+                                      mgr.root, harvested)
+        engine = bridge.extract_pairs(recs)
+        assert sorted(zip(*ours[:3])) == sorted(zip(*engine[:3]))
+        assert ours[3] == engine[3]
+        n_pairs += len(ours[0])
+        for led, fl in zip(leds, frames):
+            mgr.close_ledger(fl, led["close_time"])
+            assert mgr.lcl_hash == led["hash"]
+    assert n_pairs == len(a["fixed"])
+
+
+def test_apply_phase_on_the_cpu(libsodium):
+    """The phase at a small size on the plain versions: the Python close on
+    K-G's and K-B + K-T's verdicts and the native close give the oracle's
+    hash at every ledger and the oracle's result codes, every check hits
+    the cache, none is recomputed, the verifier counts every pair."""
+    rep = chip_smoke.ledger_apply(device="cpu", **APPLY_SMALL)
+    assert rep["phase"] == "ledger-apply" and rep["corrupted"] == 1
+    for name, _ in chip_smoke.APPLY_PATHS:
+        run = rep[name]
+        c = run["counters"]
+        assert run["final_hash"] == rep["final_hash"]
+        assert run["codes"] == rep["codes"]
+        assert run["pairs"] == run["signatures"] == rep["signatures"]
+        assert c["crypto.verify.recompute"] == 0
+        assert c["crypto.verify.cache-hit"] == run["ed25519_checks"] > 0
+        assert set(run["steps_s"]) == {"pair", "verify", "seed", "close"}
+        assert run["launches"]["K-G"] == 0      # the CPU runs plain
+    assert rep["K-G"]["counters"]["accel.ed25519.generic-sigs"] == 128
+    assert rep["K-B+K-T"]["counters"]["accel.ed25519.table-sigs"] > 0
+    native = rep["native"]
+    if rep["libsodium"] and rep["capply"]:
+        assert native["final_hash"] == rep["final_hash"]
+        assert native["engine_stats"]["verify_cache_misses"] == 0
+    else:
+        assert native["ran"] is False
+
+
+def test_apply_replay_refuses_a_ledger_that_is_not_the_oracles(
+        small_archive):
+    a = dict(small_archive)
+    a["ledgers"] = [dict(led) for led in a["ledgers"]]
+    a["ledgers"][5]["hash"] = bytes(32)
+    with pytest.raises(RuntimeError, match="hash"):
+        chip_smoke.apply_replay(a, 1 << 62, device="cpu",
+                                group=APPLY_SMALL["group"])
+
+
+def test_apply_replay_refuses_a_recompute(small_archive, monkeypatch):
+    """A verdict left out of the cache is recomputed on the host, and the
+    run is refused."""
+    seed = chip_smoke.crypto_keys.seed_verify_cache
+    monkeypatch.setattr(chip_smoke.crypto_keys, "seed_verify_cache",
+                        lambda entries: seed(list(entries)[1:]))
+    with pytest.raises(AssertionError, match="recomputed"):
+        chip_smoke.apply_replay(small_archive, 1 << 62, device="cpu",
+                                group=APPLY_SMALL["group"])
+
+
+def test_apply_phase_without_libsodium_runs_no_native_close(
+        small_archive, monkeypatch):
+    """Where libsodium does not load, native close refuses to attach and
+    the phase says so instead of running the engine."""
+    from stellar_core_tpu_torch.ledger import native_apply
+    monkeypatch.setattr(native_apply, "libsodium_loads", lambda: False)
+    monkeypatch.setattr(chip_smoke, "apply_archive",
+                        lambda *args: small_archive)
+    ran = []
+
+    def replay(archive, hot, native=False, device=None, group=64):
+        ran.append((hot, native))
+        return {"launches": dict.fromkeys(chip_smoke.KERNEL_WRAPPERS, 0),
+                "counters": {"accel.ed25519.generic-sigs": 0}}
+
+    monkeypatch.setattr(chip_smoke, "apply_replay", replay)
+    rep = chip_smoke.ledger_apply(device="cpu", **APPLY_SMALL)
+    assert ran == [(1 << 62, False), (4, False)]
+    assert rep["native"]["ran"] is False
+    assert "libsodium" in rep["native"]["why"] or not rep["capply"]
+
+
+@pytest.mark.parametrize("what, launches, generic, ok", [
+    ("K-G", {"K-G": 35, "K-B": 0, "K-T": 0}, 55020, True),
+    ("K-G", {"K-G": 35, "K-B": 1, "K-T": 0}, 55020, False),
+    ("K-G", {"K-G": 0, "K-B": 0, "K-T": 0}, 0, False),
+    ("K-B+K-T", {"K-G": 1, "K-B": 5, "K-T": 35}, 3, True),
+    ("K-B+K-T", {"K-G": 0, "K-B": 5, "K-T": 35}, 0, True),
+    ("K-B+K-T", {"K-G": 0, "K-B": 5, "K-T": 35}, 3, False),
+    ("K-B+K-T", {"K-G": 1, "K-B": 0, "K-T": 35}, 3, False),
+])
+def test_a_path_must_run_on_its_kernels(what, launches, generic, ok):
+    counters = {"accel.ed25519.generic-sigs": generic}
+    if ok:
+        chip_smoke.check_path_kernels(what, launches, counters)
+    else:
+        with pytest.raises(AssertionError, match="launches"):
+            chip_smoke.check_path_kernels(what, launches, counters)

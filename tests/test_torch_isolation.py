@@ -11,6 +11,7 @@
 """
 
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -29,6 +30,22 @@ PORT_MODULES = sorted(
     for p in (ROOT / "stellar_core_tpu_torch").rglob("*.py"))
 
 
+# state and apply: the modules a ledger close runs, and their packages
+STATE_AND_APPLY = {f"stellar_core_tpu_torch.{m}" for m in (
+    "ledger", "ledger.ledger_txn", "ledger.costs", "ledger.manager",
+    "ledger.native_apply", "ledger.native_close",
+    "bucket", *(f"bucket.{b}" for b in ("bucket", "index", "future",
+                                        "snapshot", "bucket_list",
+                                        "manager")),
+    *(f"transactions.{t}" for t in ("utils", "sponsorship",
+                                    "offer_exchange", "operations",
+                                    "offer_ops", "frame")),
+    "soroban", *(f"soroban.{s}" for s in ("config", "host", "storage",
+                                          "txset", "scheduler", "ops")),
+    "invariant", "invariant.invariants", "herder.upgrades",
+    "history", "history.archive", "database", "database.database",
+    "testutils")}
+
 FOUNDATIONS = {f"stellar_core_tpu_torch.{m}" for m in (
     "_native_build", "transactions.signature_checker",
     *(f"util.{u}" for u in ("scheduler", "clock", "lockorder", "cache",
@@ -45,7 +62,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "stellar_core_tpu_torch.crypto.rfc8032",
             "stellar_core_tpu_torch.xdr", "stellar_core_tpu_torch.util",
             "stellar_core_tpu_torch.transactions"} | FOUNDATIONS \
-        <= set(PORT_MODULES)
+        | STATE_AND_APPLY <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES + ['chip_smoke']!r}:\n"
@@ -110,6 +127,79 @@ def test_no_import_of_jax_or_the_jax_package_at_any_depth():
         if found:
             bad[str(path.relative_to(ROOT))] = found
     assert bad == {}
+
+
+def port_imports(source: str, module: str):
+    """(line, module, names) of each import, at any depth of `source`, of
+    a module of the port: absolute ones and relative ones, resolved
+    against `module`'s package (names: what a `from` statement takes from
+    the module, else ())."""
+    package = module.split(".")[:-1]
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            found += [(node.lineno, a.name, ()) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = package[:len(package) - (node.level - 1)]
+                name = ".".join(base + ([node.module] if node.module else []))
+            else:
+                name = node.module
+            found.append((node.lineno, name,
+                          tuple(a.name for a in node.names)))
+    root = "stellar_core_tpu_torch"
+    return [(line, name, names) for line, name, names in found
+            if name == root or name.startswith(root + ".")]
+
+
+def _module_file(name: str):
+    """The port file or package of a dotted module name, or None."""
+    base = ROOT.joinpath(*name.split("."))
+    for path in (base.with_suffix(".py"), base / "__init__.py"):
+        if path.exists():
+            return path
+    return None
+
+
+def test_every_import_inside_the_port_resolves_in_the_port():
+    """Each module a port file (or chip_smoke.py) imports, at any depth,
+    is a module of the port; each name a `from` import takes is a
+    submodule there or defined by the module (the copies hold no lazy
+    import of a module not yet copied, such as catchup or work)."""
+    files = sorted((ROOT / "stellar_core_tpu_torch").rglob("*.py"))
+    unresolved = {}
+    checked = 0
+    for path in files + [ROOT / "chip_smoke.py"]:
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        module = ".".join(parts)      # a package's is pkg.__init__
+        for line, name, names in port_imports(path.read_text(), module):
+            checked += 1
+            where = f"{path.relative_to(ROOT)}:{line}"
+            if _module_file(name) is None:
+                unresolved[where] = name
+                continue
+            mod = None
+            for n in names:
+                if n == "*" or _module_file(f"{name}.{n}") is not None:
+                    continue
+                mod = mod or importlib.import_module(name)
+                if not hasattr(mod, n):
+                    unresolved[where] = f"{name}.{n}"
+    assert checked > 200
+    assert unresolved == {}
+
+
+def test_the_resolve_walk_sees_relative_and_lazy_imports():
+    src = ("from ..catchup.catchup import CatchupManager\n"
+           "def f():\n    from .. import work\n"
+           "    import stellar_core_tpu_torch.historywork.works\n")
+    found = port_imports(src, "stellar_core_tpu_torch.ledger.manager")
+    assert [(n, names) for _, n, names in found] == [
+        ("stellar_core_tpu_torch.catchup.catchup", ("CatchupManager",)),
+        ("stellar_core_tpu_torch", ("work",)),
+        ("stellar_core_tpu_torch.historywork.works", ())]
+    assert _module_file("stellar_core_tpu_torch.catchup.catchup") is None
+    assert _module_file("stellar_core_tpu_torch.ledger") is not None
 
 
 @pytest.mark.parametrize("source, flagged", [

@@ -1,0 +1,292 @@
+"""Run the reference's own test scenarios on both packages and compare.
+
+A reference test file (tests/test_tx_apply.py and the like) is written
+against ``stellar_core_tpu``.  ``load`` compiles its source a second time
+with every name of that package pointed at another root, so the same
+scenario, with the same seeded keys, runs on ``stellar_core_tpu`` and on
+``stellar_core_tpu_torch``.  ``run_case`` runs one test of it on one root
+while recording every ledger close (each ``LedgerManager.close_ledger``:
+the new ledger's hash and its ``TransactionResultSet`` in XDR bytes, or
+the error it raised) and the test's own outcome; ``assert_mirrored``
+holds the two roots' records equal, byte for byte.
+
+``cases`` lists a file's tests that the port can run: a test whose body
+names a module the port does not have yet (catchup, history.manager,
+simulation, herder.tx_queue, the work layers) is left out, as is one
+marked slow (the tier-1 run deselects those).  Fixtures are the file's
+own, called as plain functions; ``tmp_path`` and ``monkeypatch`` are
+made here.
+
+The tests of this file check the helper itself.
+"""
+
+from __future__ import annotations
+
+import ast
+import contextlib
+import importlib
+import inspect
+import itertools
+import re
+import sys
+import tempfile
+import types
+from pathlib import Path
+
+import pytest
+
+REF, PORT = "stellar_core_tpu", "stellar_core_tpu_torch"
+ROOTS = (REF, PORT)
+TESTS = Path(__file__).resolve().parent
+REPO = TESTS.parent
+_NAME = re.compile(r"\bstellar_core_tpu\b")
+_DOTTED = re.compile(r"\bstellar_core_tpu((?:\.\w+)+)")
+_FROM_PKG = re.compile(r"from stellar_core_tpu import (\([^)]*\)|[^\n]+)")
+# the port's native modules are built, not files
+_BUILT = {"_cxdr", "_capply"}
+
+
+def ported(dotted: str) -> bool:
+    """True when `dotted` (a module path under the reference's root, the
+    root left out, e.g. ".ledger.manager") exists in the port."""
+    parts = [p for p in dotted.split(".") if p]
+    base = REPO / PORT
+    for i, part in enumerate(parts):
+        if i == 0 and part in _BUILT:
+            return True
+        if (base / part / "__init__.py").exists():
+            base = base / part
+            continue
+        # a module file; what follows is a name inside it
+        return (base / (part + ".py")).exists()
+    return True
+
+
+def unported(source: str) -> list:
+    """The modules `source` names that the port does not have."""
+    missing = [m for m in _DOTTED.findall(source) if not ported(m)]
+    for names in _FROM_PKG.findall(source):
+        for n in names.strip("()").replace("\n", " ").split(","):
+            n = n.split(" as ")[0].strip()
+            if n and not ported("." + n):
+                missing.append("." + n)
+    return sorted(set(missing))
+
+
+def _marks(node) -> list:
+    out = []
+    for d in node.decorator_list:
+        seg = ast.unparse(d)
+        if seg.startswith("pytest.mark."):
+            out.append(seg.split("(")[0].removeprefix("pytest.mark."))
+    return out
+
+
+def cases(filename: str) -> list:
+    """The tests of tests/`filename` the port can run, as "name" or
+    "Class.name"."""
+    src = (TESTS / filename).read_text()
+    tree = ast.parse(src)
+    top = "\n".join(ast.get_source_segment(src, n) or "" for n in tree.body
+                  if isinstance(n, (ast.Import, ast.ImportFrom)))
+    if unported(top):
+        raise ValueError(f"{filename} imports {unported(top)} at the top")
+    found = []
+
+    def consider(fn, name, cls=None):
+        if not fn.name.startswith("test_") or "slow" in _marks(fn) \
+                or (cls is not None and "slow" in _marks(cls)):
+            return
+        body = ast.get_source_segment(src, fn)
+        if unported(body):
+            return
+        found.append(name)
+
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef):
+            consider(node, node.name)
+        elif isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
+            for fn in node.body:
+                if isinstance(fn, ast.FunctionDef):
+                    consider(fn, f"{node.name}.{fn.name}", node)
+    return found
+
+
+def rewrite(source: str, root: str) -> str:
+    """`source` with every name of the reference's package pointed at
+    `root`, and pytest's fixture decorators removed (a fixture is then a
+    plain function that run_case calls)."""
+    if root != REF:
+        source = _NAME.sub(root, source)
+    return re.sub(r"^[ \t]*@pytest\.fixture(\([^)]*\))?[ \t]*\n", "", source,
+                  flags=re.M)
+
+
+_loaded: dict = {}
+
+
+def load(filename: str, root: str):
+    """tests/`filename` compiled against `root`, once a process."""
+    key = (filename, root)
+    if key not in _loaded:
+        path = TESTS / filename
+        name = f"_mirror_{root}_{path.stem}"
+        mod = types.ModuleType(name)
+        mod.__file__ = str(path)
+        sys.modules[name] = mod
+        exec(compile(rewrite(path.read_text(), root), str(path), "exec"),
+             mod.__dict__)
+        _loaded[key] = mod
+    return _loaded[key]
+
+
+def _params(fn) -> list:
+    """Every argument set of fn's parametrize marks, as dicts."""
+    sets = [[{}]]
+    for mark in getattr(fn, "pytestmark", []):
+        if mark.name != "parametrize":
+            continue
+        names, values = mark.args[:2]
+        names = [n.strip() for n in names.split(",")] \
+            if isinstance(names, str) else list(names)
+        one = []
+        for v in values:
+            v = v.values if hasattr(v, "values") and hasattr(v, "marks") \
+                else v
+            v = (v,) if len(names) == 1 else tuple(v)
+            one.append(dict(zip(names, v)))
+        sets.append(one)
+    return [dict(kv for d in combo for kv in d.items())
+            for combo in itertools.product(*sets)]
+
+
+def _outcome(call) -> tuple:
+    try:
+        call()
+    except pytest.skip.Exception as e:
+        return ("skip", str(e))
+    except BaseException as e:          # the test's own failure, compared
+        return ("fail", type(e).__name__, str(e))
+    return ("ok",)
+
+
+@contextlib.contextmanager
+def recording(root: str, log: list):
+    """Record every LedgerManager.close_ledger of `root` into `log`."""
+    LM = importlib.import_module(root + ".ledger.manager").LedgerManager
+    orig = LM.close_ledger
+
+    def close_ledger(self, *args, **kwargs):
+        try:
+            arts = orig(self, *args, **kwargs)
+        except BaseException as e:
+            log.append(("raise", type(e).__name__, str(e)))
+            raise
+        log.append((self.lcl_header.ledgerSeq, self.lcl_hash,
+                    arts.result_entry.txResultSet.to_xdr()))
+        return arts
+
+    LM.close_ledger = close_ledger
+    try:
+        yield log
+    finally:
+        LM.close_ledger = orig
+
+
+def run_case(filename: str, case: str, root: str) -> dict:
+    """Run one test of tests/`filename` on `root` (every parameter set of
+    it): {"outcomes": [...], "closes": [...]}."""
+    mod = load(filename, root)
+    cls_name, _, fn_name = case.rpartition(".")
+    owner = getattr(mod, cls_name)() if cls_name else None
+    fn = getattr(owner if owner is not None else mod, fn_name)
+    raw = getattr(type(owner), fn_name) if owner is not None else fn
+    outcomes, closes = [], []
+    for params in _params(raw):
+        with tempfile.TemporaryDirectory() as tmp, \
+                pytest.MonkeyPatch.context() as mp, \
+                recording(root, closes):
+            made = {"tmp_path": Path(tmp), "monkeypatch": mp}
+            teardown = []
+
+            def resolve(name):
+                if name in params:
+                    return params[name]
+                if name not in made:
+                    fixture = getattr(owner, name, None) or getattr(mod, name)
+                    args = [resolve(p) for p in
+                            inspect.signature(fixture).parameters]
+                    if inspect.isgeneratorfunction(fixture):
+                        gen = fixture(*args)
+                        made[name] = next(gen)
+                        teardown.append(gen)
+                    else:
+                        made[name] = fixture(*args)
+                return made[name]
+
+            def call():
+                args = {p: resolve(p)
+                        for p in inspect.signature(fn).parameters}
+                fn(**args)
+
+            outcomes.append(_outcome(call))
+            for gen in reversed(teardown):
+                with contextlib.suppress(StopIteration):
+                    next(gen)
+    return {"outcomes": outcomes, "closes": closes}
+
+
+def assert_mirrored(filename: str, case: str) -> dict:
+    """The case on both roots: the reference passes it, and the port's
+    outcomes and every close (hash, result set bytes) equal the
+    reference's."""
+    ref = run_case(filename, case, REF)
+    assert all(o[0] != "fail" for o in ref["outcomes"]), ref["outcomes"]
+    port = run_case(filename, case, PORT)
+    for i, (a, b) in enumerate(zip(port["closes"], ref["closes"])):
+        assert a == b, f"close {i} of {case}: port {a!r} != reference {b!r}"
+    assert len(port["closes"]) == len(ref["closes"])
+    assert port["outcomes"] == ref["outcomes"]
+    return ref
+
+
+# -- the helper's own checks --------------------------------------------------
+
+def test_rewrite_points_every_name_at_the_root():
+    src = ("from stellar_core_tpu import xdr as X\n"
+           "import stellar_core_tpu.ledger.manager\n"
+           "@pytest.fixture\ndef mgr():\n    pass\n"
+           "@pytest.fixture(scope='module')\ndef root(mgr):\n    pass\n")
+    out = rewrite(src, PORT)
+    assert "from stellar_core_tpu_torch import xdr as X" in out
+    assert "import stellar_core_tpu_torch.ledger.manager" in out
+    assert "@pytest" not in out and "def root(mgr)" in out
+    assert rewrite(out, PORT).count("stellar_core_tpu_torch_torch") == 0
+
+
+def test_cases_leave_out_what_the_port_lacks():
+    assert ported(".ledger.manager") and ported(".xdr")
+    assert ported("._capply")
+    assert not ported(".catchup.catchup") and not ported(".simulation")
+    assert unported("from stellar_core_tpu.history.manager import H\n"
+                    "from stellar_core_tpu import work, xdr\n") \
+        == [".history.manager", ".work"]
+    names = cases("test_tx_apply.py")
+    assert "test_fee_bump" in names
+    # imports catchup and history.manager in its body
+    assert "test_same_source_apply_order_survives_replay" not in names
+
+
+def test_a_different_close_is_caught(monkeypatch):
+    """The comparison sees a port that closes one ledger differently."""
+    from stellar_core_tpu_torch.transactions import frame
+    orig = frame.TransactionFrame.apply
+
+    def apply(self, ltx, close_time):
+        res = orig(self, ltx, close_time)
+        res.feeCharged += 1
+        return res
+
+    monkeypatch.setattr(frame.TransactionFrame, "apply", apply)
+    with pytest.raises(AssertionError, match="close 0 of"):
+        assert_mirrored("test_tx_apply.py", "test_create_account_and_payment")
