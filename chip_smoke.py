@@ -60,11 +60,29 @@ with every 100th signature's R corrupted (655 bad, 64,881 accepted); and
   where libsodium loads.  Every ledger's hash and result set must be the
   oracle's, with no verdict recomputed;
 
+* catchup (catchup): the same chain, published by the port's
+  HistoryManager into a FileHistoryArchive as the oracle closes it (18
+  checkpoints; its tip must be the oracle's last ledger), replayed by
+  the port's CatchupManager(accel=True) through the CatchupWork DAG and
+  PreverifyPipeline's device worker thread: a warm pass to ledger 127,
+  then (a) the defaults (chunk 2,048, K-G, the poll profile), (b) the
+  bench's settings (chunk 8,192, hot_threshold 4: K-B + K-T), (c) as (b)
+  with the race profile, and (d) ``python -m stellar_core_tpu_torch
+  catchup --parallel 3 --accel cuda``, three range workers on the one
+  card.  Every run must end on the archive's tip hash, (a) must launch
+  K-G and (b) and (c) K-B and K-T; each run prints its ledgers/s, hit
+  rate, offload counters, CPU fallback verifies and their seconds, and
+  launches and CUDA-event time a kernel (events recorded by the worker
+  thread: where the card waits on the host they also hold the host's
+  delay, so they are upper bounds);
+
 * the graft entry (stellar_core_tpu_torch/graft_entry.py): K-W, the
   windows form of K-G, against its plain version on the cold path's 8,192
   signatures, its fused accept count, and ``entry()``'s step; then the
   multi-card forms, as shards on the one card the machine has:
-  ``dryrun_multigpu(4)``, both verify paths with ``devices=[card, card]``
+  ``dryrun_multigpu(4)`` (its third check a small archive replayed by
+  CatchupManager with the offload over the 4 shards), both verify paths
+  with ``devices=[card, card]``
   and asym5 and the split map through the sharded quorum checker.
 
 Each phase prints one JSON line; then the card's name and power limit as
@@ -83,9 +101,13 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -95,11 +117,16 @@ from stellar_core_tpu_torch import _cuda_build, graft_entry
 from stellar_core_tpu_torch import testutils as qmaps
 from stellar_core_tpu_torch import xdr as X
 from stellar_core_tpu_torch.accel import curve, ed25519, field, quorum, tables
+from stellar_core_tpu_torch.catchup.catchup import CatchupManager
 from stellar_core_tpu_torch.crypto import keys as crypto_keys
 from stellar_core_tpu_torch.crypto import sodium
 from stellar_core_tpu_torch.crypto.keys import SecretKey
 from stellar_core_tpu_torch.crypto.sha import sha256
 from stellar_core_tpu_torch.device import Shards, parts
+from stellar_core_tpu_torch.history.archive import (CATEGORY_LEDGER,
+                                                    FileHistoryArchive,
+                                                    category_path)
+from stellar_core_tpu_torch.history.manager import HistoryManager
 from stellar_core_tpu_torch.herder.quorum_intersection import (
     QuorumIntersectionChecker)
 from stellar_core_tpu_torch.ledger import native_apply
@@ -110,6 +137,7 @@ from stellar_core_tpu_torch.testutils import (TestAccount, build_tx,
 from stellar_core_tpu_torch.transactions.frame import TransactionFrame
 from stellar_core_tpu_torch.transactions.signature_checker import (
     SignatureChecker)
+from stellar_core_tpu_torch.util import metrics
 from stellar_core_tpu_torch.util.metrics import registry
 from stellar_core_tpu_torch.xdr import codec as xdr_codec
 
@@ -754,7 +782,8 @@ APPLY_ORACLE_CHECK_EVERY = 50
 def apply_archive(n_payment_ledgers: int = APPLY_PAYMENT_LEDGERS,
                   n_accounts: int = APPLY_ACCOUNTS,
                   txs_per_ledger: int = APPLY_TXS_PER_LEDGER,
-                  group: int = APPLY_GROUP) -> dict:
+                  group: int = APPLY_GROUP,
+                  archive_dir: str = None) -> dict:
     """The oracle run: bench.py's build_archive chain closed on the host
     by LedgerManager(nid, invariant_manager=None), each ledger's
     signatures seeded into the verify cache before its close with the
@@ -765,11 +794,16 @@ def apply_archive(n_payment_ledgers: int = APPLY_PAYMENT_LEDGERS,
     seconds.  1 in APPLY_ORACLE_CHECK_EVERY fixed verdicts, and the first
     rejections, are checked with sodium.verify_detached (libsodium, or its
     RFC 8032 fallback).  The chain ends on a ledger that closes a group of
-    `group` ledgers (a checkpoint boundary at 64)."""
+    `group` ledgers (a checkpoint boundary at 64).  With `archive_dir`,
+    the port's HistoryManager publishes every checkpoint of the chain into
+    a FileHistoryArchive there as the oracle closes it (bench.py's
+    build_archive), for the catchup phase."""
     t_start = time.perf_counter()
     nid = sha256(APPLY_PASSPHRASE.encode())
     mgr = LedgerManager(nid, invariant_manager=None)
     mgr.start_new_ledger()
+    history = None if archive_dir is None else HistoryManager(
+        mgr, APPLY_PASSPHRASE, [FileHistoryArchive(archive_dir)])
     genesis = mgr.lcl_hash
     rsk = mgr.root_account_secret()
     top = TestAccount(mgr, rsk, mgr.root.get_entry(X.account_key_xdr(
@@ -836,6 +870,8 @@ def apply_archive(n_payment_ledgers: int = APPLY_PAYMENT_LEDGERS,
         crypto_keys.seed_verify_cache(pairs)
         close_time += 5
         arts = mgr.close_ledger(frames, close_time)
+        if history is not None:
+            history.ledger_closed(arts)
         results = arts.result_entry.txResultSet
         for pair in results.results:
             name = pair.result.result.switch.name
@@ -863,6 +899,8 @@ def apply_archive(n_payment_ledgers: int = APPLY_PAYMENT_LEDGERS,
             "codes": codes, "fixed": fixed,
             "corrupted": sum(1 for ok in fixed.values() if not ok),
             "checked_verdicts": len(checked), "sign_s": sign_s,
+            "published": [] if history is None
+            else list(history.published_checkpoints),
             "oracle_close_s": close_s,
             "check_s": time.perf_counter() - t_check,
             "build_s": time.perf_counter() - t_start}
@@ -1080,15 +1118,17 @@ def apply_replay(archive: dict, hot: int, native: bool = False,
 def ledger_apply(n_payment_ledgers: int = APPLY_PAYMENT_LEDGERS,
                  device=None, n_accounts: int = APPLY_ACCOUNTS,
                  txs_per_ledger: int = APPLY_TXS_PER_LEDGER,
-                 group: int = APPLY_GROUP) -> dict:
+                 group: int = APPLY_GROUP, archive: dict = None) -> dict:
     """The ledger-apply phase: the oracle's chain (apply_archive), then
     three replays of it: the Python close on K-G's verdicts (hot_threshold
     1 << 62, the replay default), on K-B + K-T's (4, the bench's), and the
     native engine's close on K-G's where libsodium loads (elsewhere the
     phase checks that native close refuses to attach, and says so).  On
-    the card each path must have run on its kernels alone."""
-    archive = apply_archive(n_payment_ledgers, n_accounts, txs_per_ledger,
-                            group)
+    the card each path must have run on its kernels alone.  `archive`: the
+    oracle's chain made already (apply_archive with those sizes)."""
+    if archive is None:
+        archive = apply_archive(n_payment_ledgers, n_accounts,
+                                txs_per_ledger, group)
     n = len(archive["ledgers"])
     report = {"phase": "ledger-apply", "signer": signer_name(),
               "cxdr": xdr_codec._cxdr is not None,
@@ -1129,6 +1169,246 @@ def ledger_apply(n_payment_ledgers: int = APPLY_PAYMENT_LEDGERS,
                     else "libsodium does not load, so an engine cache miss "
                          "would reject a valid signature; every close ran "
                          "in Python")}
+    return report
+
+
+# -- catchup: the replay of a published archive through the port's catchup --
+
+# the warm pass's target (bench.py:1874-1876), the runs (CatchupManager's
+# keywords beyond accel=True; (a) its defaults: chunk 2,048, K-G, poll),
+# the range workers of the parallel run
+CATCHUP_WARM_TO = 127
+CATCHUP_RUNS = (
+    ("a", "K-G", {}),
+    ("b", "K-B+K-T", {"accel_chunk": 8192, "accel_hot_threshold": 4}),
+    ("c", "K-B+K-T", {"accel_chunk": 8192, "accel_hot_threshold": 4,
+                      "accel_profile": "race"}))
+CATCHUP_WORKERS = 3
+CATCHUP_COUNTERS = SEAM_COUNTERS + (
+    "catchup.preverify.not-dispatched", "catchup.preverify.race-lost",
+    "catchup.preverify.late-seeded", "catchup.preverify.fallback",
+    "catchup.preverify.sigs-total", "catchup.preverify.sigs-shipped")
+CATCHUP_STATS = ("sigs_total", "sigs_shipped", "sigs_not_dispatched",
+                 "sigs_race_lost", "sigs_late_seeded", "collect_fallbacks",
+                 "collect_race_misses", "race_losses", "dispatch_s",
+                 "dispatch_groups", "collect_wait_s")
+
+
+def archive_tip(archive_dir: str) -> tuple:
+    """(ledger, hash) of the published archive's tip: its HAS's current
+    ledger and the last header entry of that checkpoint's ledger file."""
+    fa = FileHistoryArchive(archive_dir)
+    seq = fa.get_state().current_ledger
+    last = X.LedgerHeaderHistoryEntry.from_xdr(
+        fa.get_xdr_file(category_path(CATEGORY_LEDGER, seq))[-1])
+    if last.header.ledgerSeq != seq:
+        raise AssertionError(f"checkpoint {seq}'s ledger file ends at "
+                             f"{last.header.ledgerSeq}")
+    return seq, last.hash
+
+
+class _TimedFallbacks:
+    """The CPU verifies of signatures the verify cache missed
+    (crypto.keys.verify_sig's recompute: libsodium, or its RFC 8032
+    fallback), counted and timed while the context is open."""
+
+    def __init__(self):
+        self.calls, self.seconds = 0, 0.0
+
+    def __enter__(self):
+        self._orig = crypto_keys.sodium.verify_detached
+
+        def verify_detached(*args):
+            t0 = time.perf_counter()
+            try:
+                return self._orig(*args)
+            finally:
+                self.calls += 1
+                self.seconds += time.perf_counter() - t0
+
+        crypto_keys.sodium.verify_detached = verify_detached
+        return self
+
+    def __exit__(self, *exc):
+        crypto_keys.sodium.verify_detached = self._orig
+
+
+def join_device_workers(timeout: float = 300.0) -> None:
+    """Wait for the preverify pipelines' device workers to end: a closed
+    pipeline's worker runs the groups still queued (a poll-profile group
+    that ripens after the replay) and then exits, so its launches are
+    counted and their events complete before they are read."""
+    deadline = time.monotonic() + timeout
+    for t in threading.enumerate():
+        if t.name == "preverify-device":
+            t.join(max(0.0, deadline - time.monotonic()))
+
+
+def catchup_run(archive_dir: str, nid: bytes, tip: tuple, kw: dict,
+                device=None) -> dict:
+    """One timed catchup_complete of the archive by CatchupManager(nid,
+    APPLY_PASSPHRASE, accel=True, **kw) on `device` (None: the card),
+    after keys.clear_verify_cache(), reset_registry() and with a fresh
+    verifier (no pk cache, use counts or key tables), as a new catchup
+    process has.  Launch counts are set to 0 just before and read after
+    the pipeline's worker ended; each launch's CUDA-event time is summed
+    a kernel.  The pipeline's worker thread records those events and waits
+    for the GIL between an event and its launch, so the sums are upper
+    bounds of the kernels' time (``kernel_ms_upper``).  Raises unless the
+    replay ends on the archive's tip hash; on the card a device job that
+    raised fails the catchup itself (PreverifyPipeline)."""
+    crypto_keys.clear_verify_cache()
+    metrics.reset_registry()
+    ed25519._verifiers.clear()
+    fa = FileHistoryArchive(archive_dir)
+    cm = CatchupManager(nid, APPLY_PASSPHRASE, accel=True,
+                        accel_device=device, **kw)
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+    _cuda_build.launch_events = []
+    try:
+        with _TimedFallbacks() as fallbacks:
+            t0 = time.perf_counter()
+            mgr = cm.catchup_complete(fa)
+            seconds = time.perf_counter() - t0
+        join_device_workers()
+        events = _cuda_build.launch_events
+    finally:
+        _cuda_build.launch_events = None
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for name, start, end in events:
+        per_kernel[name] = per_kernel.get(name, 0.0) + start.elapsed_time(end)
+    kernel_ms = sum(per_kernel.values())
+    reg = registry()
+    counters = {c: reg.counter(c).value for c in CATCHUP_COUNTERS}
+    dispatch = reg.timer("catchup.preverify.dispatch")
+    n = mgr.last_closed_ledger_seq - 1
+    run = {"settings": {"chunk": cm.accel_chunk,
+                        "hot_threshold": cm.accel_hot_threshold,
+                        "profile": cm.accel_profile or "poll",
+                        "native": cm.native},
+           "ledgers": n, "seconds": seconds, "ledgers_per_s": n / seconds,
+           "final_ledger": mgr.last_closed_ledger_seq,
+           "final_hash": mgr.lcl_hash.hex(),
+           "offload_hit_rate": cm.offload_hit_rate(),
+           "stats": {k: cm.stats.get(k, 0) for k in CATCHUP_STATS},
+           "counters": counters,
+           "dispatch_timer_count": dispatch.count,
+           "fallback_verifies": fallbacks.calls,
+           "fallback_verify_s": fallbacks.seconds,
+           "launches": {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()},
+           "kernel_ms_upper": per_kernel,
+           "kernel_ms_total_upper": kernel_ms,
+           "kernel_share_upper": kernel_ms / 1e3 / seconds}
+    if (mgr.last_closed_ledger_seq, mgr.lcl_hash) != tip:
+        raise AssertionError(f"catchup ended at {mgr.last_closed_ledger_seq} "
+                             f"{mgr.lcl_hash.hex()}, not the archive's tip "
+                             f"{tip[0]} {tip[1].hex()}: {run}")
+    return run
+
+
+def catchup_parallel(archive_dir: str, tip: tuple, accel: str,
+                     workers: int = CATCHUP_WORKERS) -> dict:
+    """`python -m stellar_core_tpu_torch catchup --parallel <workers>
+    --accel <accel>` as a subprocess on a config naming the archive's
+    network: range workers that assume state at interior checkpoints,
+    replay their ranges and stitch.  Its report (--report) gives each
+    range's stitch record; raises unless it exits 0 on the tip's hash and,
+    with accel "cuda", unless every range launched a verify kernel and
+    shipped some of its signatures' verdicts from the card."""
+    with tempfile.TemporaryDirectory() as d:
+        conf, out = os.path.join(d, "node.cfg"), os.path.join(d, "report.json")
+        with open(conf, "w") as f:
+            f.write(f'NETWORK_PASSPHRASE = "{APPLY_PASSPHRASE}"\n')
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo + (
+            os.pathsep + os.environ["PYTHONPATH"]
+            if os.environ.get("PYTHONPATH") else ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "stellar_core_tpu_torch", "catchup",
+             "--conf", conf, "--archive", archive_dir, "--parallel",
+             str(workers), "--accel", accel, "--report", out],
+            capture_output=True, text=True, env=env, timeout=900)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"parallel catchup exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        with open(out) as f:
+            report = json.load(f)
+    ranges = [{k: r.get(k) for k in (
+        "index", "seed_checkpoint", "replay_to", "final_ledger_seq",
+        "ledgers_replayed", "wall_s", "ledgers_per_s",
+        "sig_offload_hit_rate", "launches")} for r in report["ranges"]]
+    run = {"workers": workers, "accel": accel, "seconds": seconds,
+           "ledgers_per_s": (tip[0] - 1) / seconds,
+           "orchestrator_ledgers_per_s": report["ledgers_per_s"],
+           "orchestrator_wall_s": report["wall_s"],
+           "stitches_verified": report["stitches_verified"],
+           "steals": report["steals"],
+           "final_ledger": report["final_ledger_seq"],
+           "final_hash": report["final_hash"], "ranges": ranges}
+    if (report["final_ledger_seq"], report["final_hash"]) \
+            != (tip[0], tip[1].hex()):
+        raise AssertionError(f"parallel catchup did not end on the "
+                             f"archive's tip: {run}")
+    if accel == "cuda" and not all(
+            r["sig_offload_hit_rate"] > 0 and sum(r["launches"].values())
+            for r in ranges):
+        raise AssertionError(f"a range worker did not verify on the card: "
+                             f"{ranges}")
+    return run
+
+
+def catchup_phase(archive: dict, archive_dir: str, device=None) -> dict:
+    """The catchup phase: the oracle's chain as apply_archive published it
+    (its tip must be the oracle's last ledger), a warm pass that is not
+    timed (catchup_complete to CATCHUP_WARM_TO at the bench's settings),
+    then the timed runs (a)-(c) (catchup_run) and (d), the parallel
+    catchup through the command line.  On the card run (a) must have
+    launched K-G alone and runs (b) and (c) K-B and K-T, and run (c), whose
+    collects wait for the card within the race's budget, must have
+    verified no group on the CPU."""
+    nid = archive["nid"]
+    tip = archive_tip(archive_dir)
+    last = archive["ledgers"][-1]
+    if tip != (last["seq"], last["hash"]):
+        raise AssertionError(f"the archive's tip {tip[0]} {tip[1].hex()} is "
+                             f"not the oracle's last ledger")
+    on_card = device is None or torch.device(device).type == "cuda"
+    report = {"phase": "catchup", "signer": signer_name(),
+              "libsodium": native_apply.libsodium_loads(),
+              "native": ("on" if native_apply.native_apply_available()
+                         else "off: libsodium does not load, so every "
+                              "close runs in Python (ledger-apply)"),
+              "archive_ledgers": tip[0], "archive_hash": tip[1].hex(),
+              "checkpoints": len(archive["published"]),
+              "signatures": len(archive["fixed"]),
+              "corrupted": archive["corrupted"]}
+    t0 = time.perf_counter()
+    crypto_keys.clear_verify_cache()
+    warm = CatchupManager(nid, APPLY_PASSPHRASE, accel=True,
+                          accel_device=device, **CATCHUP_RUNS[1][2])
+    if warm.catchup_complete(FileHistoryArchive(archive_dir),
+                             to_ledger=CATCHUP_WARM_TO) \
+            .last_closed_ledger_seq != CATCHUP_WARM_TO:
+        raise AssertionError("the warm pass did not reach its target")
+    join_device_workers()
+    report["warm_s"] = time.perf_counter() - t0
+    for name, path, kw in CATCHUP_RUNS:
+        run = catchup_run(archive_dir, nid, tip, kw, device)
+        if on_card:
+            check_path_kernels(f"catchup ({name}) {path}", run["launches"],
+                               run["counters"])
+            if run["settings"]["profile"] == "race" \
+                    and run["stats"]["collect_fallbacks"]:
+                raise AssertionError(f"catchup ({name}): groups verified on "
+                                     f"the CPU: {run['stats']}")
+        report[name] = run
+    report["d"] = catchup_parallel(
+        archive_dir, tip, "cuda" if on_card else "cpu")
     return report
 
 
@@ -1617,7 +1897,8 @@ def multi_gpu_phase(dev, hot, cold, timing, qf_65536) -> None:
     summary = run["verdicts"]
     emit({"phase": "multi-gpu-dryrun", "device_count": cards,
           **summary, **call_report(run)})
-    if run["launches"]["K-W"] != 4 or run["launches"]["K-QF"] < 1:
+    if run["launches"]["K-W"] != 4 or run["launches"]["K-QF"] < 1 \
+            or run["launches"]["K-G"] < 1:
         raise AssertionError(f"dryrun_multigpu(4): launches {run['launches']}")
 
     shards = [dev, dev]
@@ -1962,9 +2243,20 @@ def run(dev) -> int:
     emit(seam)
 
     # -- ledger apply: the replay's apply half on the card's verdicts ------
-    applied = ledger_apply()
-    applied["nvidia_smi"] = smi
-    emit(applied)
+    # the oracle's chain, published as it closes for the catchup phase
+    archive_dir = tempfile.mkdtemp(prefix="chip-smoke-archive-")
+    try:
+        archive = apply_archive(archive_dir=archive_dir)
+        applied = ledger_apply(archive=archive)
+        applied["nvidia_smi"] = smi
+        emit(applied)
+
+        # -- catchup: the archive replayed through the port's catchup ------
+        replayed = catchup_phase(archive, archive_dir)
+        replayed["nvidia_smi"] = smi
+        emit(replayed)
+    finally:
+        shutil.rmtree(archive_dir, ignore_errors=True)
 
     # -- quorum intersection (bench.py config 5) ----------------------------
     widest, at_65536 = quorum_kernels_vs_plain(dev)

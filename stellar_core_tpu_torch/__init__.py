@@ -8,7 +8,12 @@ beside it, and keeps its own copies of the host modules around that offload
 ``transactions.signature_checker``) and of the state and apply layer a
 ledger close runs (``bucket``, ``transactions``, ``soroban``,
 ``invariant``, ``ledger`` with the native apply engine native/capply.c,
-``database``, ``history.archive``, ``herder.upgrades``).  It imports
+``database``, ``history.archive``, ``herder.upgrades``) and of the
+catchup seam that replays a history archive (``work``, ``historywork``,
+``catchup`` with range-parallel catchup, ``history.manager``,
+``simulation.loadgen``, ``util.process``, ``main.config`` and the
+catchup subcommands of ``main.commandline``: ``python -m
+stellar_core_tpu_torch catchup``).  It imports
 ``torch``, numpy and the standard library only: never ``jax`` and nothing
 of ``stellar_core_tpu``.
 Where it needs code from the JAX package it keeps its own copy, under the

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import threading
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -287,6 +288,13 @@ class Ed25519BatchVerifier:
     into contiguous parts, one a device; an empty part launches nothing.
     The key rows go to every device, and every hot key's table is built by
     K-B on every distinct device (one slot map, one table tensor a device).
+
+    Threads: a call holds the verifier's lock from its host prep to its
+    last launch, so calls from several threads (the catchup pipeline's
+    worker generations) never interleave on the pk cache, the use counts
+    or the key tables; and KeyTableCache.install waits for the launches
+    that read a table before it rewrites a slot, whatever stream they ran
+    on.
     """
 
     def __init__(self, chunk_size: int = 8192, table_slots: int = 192,
@@ -306,6 +314,7 @@ class Ed25519BatchVerifier:
         self._use_counts: dict = {}
         self.stats = {"table_sigs": 0, "generic_sigs": 0, "rejected_prep": 0,
                       "tables_built": 0}
+        self._lock = threading.Lock()
 
     @staticmethod
     def _decode_pk(pk: bytes):
@@ -334,6 +343,10 @@ class Ed25519BatchVerifier:
         n = len(pks)
         if len(sigs) != n or len(msgs) != n:
             raise ValueError("pks, sigs and msgs differ in length")
+        with self._lock:
+            return self._verify_async(pks, sigs, msgs, n)
+
+    def _verify_async(self, pks, sigs, msgs, n: int):
         _registry().histogram("accel.ed25519.batch-size").update(n)
 
         # -- vectorized encoding checks ---------------------------------
@@ -464,6 +477,8 @@ class Ed25519BatchVerifier:
         # one event a shard, after its last launch
         done = [shards.join(k, *(v for kk, _, v in pending if kk == k))
                 for k in range(len(shards))]
+        if hot_idx:
+            tabs.note_readers(done)
 
         def collect() -> np.ndarray:
             for event in done:
@@ -498,6 +513,7 @@ class Ed25519BatchVerifier:
 
 
 _verifiers: dict = {}  # (chunk, tail floor, hot threshold, devices) -> verifier
+_verifiers_lock = threading.Lock()
 
 
 def _verifier_for(chunk_size: int, tail_floor: int, hot_threshold: int,
@@ -508,10 +524,11 @@ def _verifier_for(chunk_size: int, tail_floor: int, hot_threshold: int,
     verifiers, with their own pk caches, use counts and key tables."""
     devs = resolve_shards(device, devices)
     key = (chunk_size, tail_floor, hot_threshold, devs)
-    v = _verifiers.get(key)
-    if v is None:
-        v = _verifiers[key] = Ed25519BatchVerifier(
-            chunk_size, hot_threshold=hot_threshold, devices=devs)
+    with _verifiers_lock:
+        v = _verifiers.get(key)
+        if v is None:
+            v = _verifiers[key] = Ed25519BatchVerifier(
+                chunk_size, hot_threshold=hot_threshold, devices=devs)
     return v
 
 

@@ -294,6 +294,7 @@ class KeyTableCache:
         self.slot_of: dict = {}     # pk bytes -> slot
         self._tick = 0
         self._last_used: dict = {}  # pk bytes -> tick
+        self._readers: list = []    # events after launches that read them
 
     def _ensure(self):
         if self.table is None:
@@ -305,6 +306,13 @@ class KeyTableCache:
         """The resident table on `device` (this cache's or a mirror)."""
         device = torch.device(device)
         return self.table if device == self.device else self.mirror_tables[device]
+
+    def note_readers(self, events) -> None:
+        """Record `events` (CUDA events, None on the CPU), each recorded
+        after launches that read the tables; install's rewrites wait for
+        them, on whatever stream those launches ran."""
+        self._readers = [e for e in self._readers if not e.query()] \
+            + [e for e in events if e is not None]
 
     def lookup(self, pk: bytes):
         slot = self.slot_of.get(pk)
@@ -348,6 +356,13 @@ class KeyTableCache:
             self._last_used[pk] = self._tick
             kept.append((pk, dec))
 
+        # a slot is rewritten in place: earlier launches that read it
+        # finish first
+        for dev in (self.device,) + self.mirrors:
+            if dev.type == "cuda":
+                for event in self._readers:
+                    torch.cuda.current_stream(dev).wait_event(event)
+        self._readers = []
         for start in range(0, len(kept), BUILD_K):
             batch = kept[start:start + BUILD_K]
             xy = np.stack([np.asarray(dec)[:2] for _, dec in batch])

@@ -87,6 +87,27 @@ def on_device(dev: torch.device):
     return contextlib.nullcontext()
 
 
+def current_streams(devices: Sequence[torch.device]) -> dict:
+    """{card: the calling thread's current stream on it} for the CUDA
+    devices of `devices` (empty on the CPU).  Torch keeps the current
+    stream per thread: a job handed to another thread takes these along
+    and runs under them (``using``)."""
+    return {d: torch.cuda.current_stream(d)
+            for d in dict.fromkeys(devices) if d.type == "cuda"}
+
+
+@contextlib.contextmanager
+def using(devices: Sequence[torch.device], streams: dict):
+    """Run the body with `streams` (current_streams of another thread) the
+    current streams of their cards and the first of `devices` the current
+    device, whatever thread runs it."""
+    with contextlib.ExitStack() as stack:
+        for stream in streams.values():
+            stack.enter_context(torch.cuda.stream(stream))
+        stack.enter_context(on_device(devices[0]))
+        yield
+
+
 def parts(n: int, k: int) -> List[Tuple[int, int]]:
     """k contiguous (lo, hi) parts of range(n), in order, sizes differing
     by at most one (the larger first); a part may be empty."""

@@ -6,14 +6,17 @@ verify_windows``) on eight signatures, as ``(fn, args)``.
 ``dryrun_multichip``: the signature batch split over n shards, each verified
 by K-W with its accept count fused, the counts summed on the first device
 (the reference's ``psum``); then the quorum enumerator's prune step sharded
-over the same devices.  Its third check, catchup over the mesh, needs the
-port's catchup slice.
+over the same devices; then its third check, ``dryrun_catchup``: a small
+published archive replayed by the port's CatchupManager with the offload
+sharded over the same devices.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import random
+import tempfile
 
 import numpy as np
 import torch
@@ -125,14 +128,83 @@ def dryrun_multigpu(n_devices: int, *, device=None) -> dict:
                                        devices=devices).check()
     assert r1.intersects and not r2.intersects, (r1, r2)
 
+    replay = dryrun_catchup(devices)
+
     cards = len({d for d in devices if d.type == "cuda"})
     summary = {"signatures": n, "shards": n_devices, "cards": cards,
                "accept_total": total, "safe_intersects": r1.intersects,
                "split_intersects": r2.intersects,
-               "split_max_quorums_found": r2.max_quorums_found}
+               "split_max_quorums_found": r2.max_quorums_found,
+               **replay}
     where = f"{cards} card(s)" if cards else "the CPU"
     print(f"dryrun_multigpu OK: {n} sigs verified in {n_devices} shards on "
           f"{where}, accept count total={total}; quorum enumerator sharded "
           f"check: safe intersects={r1.intersects}, split intersects="
-          f"{r2.intersects}", flush=True)
+          f"{r2.intersects}; accel catchup over the shards: hashes "
+          f"identical, hit_rate={replay['catchup_hit_rate']:.2f}", flush=True)
     return summary
+
+
+def dryrun_catchup(devices) -> dict:
+    """The dry run's third check (the reference's, __graft_entry__.py:
+    147-208): a small archive (4 accounts, 8 ledgers of 4 payments, empty
+    ledgers to the first checkpoint) published by HistoryManager, then
+    replayed by CatchupManager(accel=True, accel_devices=devices,
+    accel_profile="race"): the replay's hash must be the source chain's
+    and every pairable signature must ship."""
+    from . import xdr as X
+    from .catchup.catchup import CatchupManager
+    from .crypto import keys as _keys
+    from .crypto.keys import SecretKey
+    from .history.archive import FileHistoryArchive
+    from .history.manager import HistoryManager
+    from .ledger.manager import LedgerManager
+    from .testutils import (TestAccount, create_account_op,
+                            native_payment_op, network_id)
+
+    passphrase = "dryrun multichip catchup"
+    nid_b = network_id(passphrase)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = LedgerManager(nid_b)
+        mgr.start_new_ledger()
+        archive = FileHistoryArchive(os.path.join(d, "arch"))
+        history = HistoryManager(mgr, passphrase, [archive])
+        root_sk = mgr.root_account_secret()
+        e = mgr.root.get_entry(X.account_key_xdr(root_sk.public_key.ed25519))
+        root = TestAccount(mgr, root_sk, e.data.value.seqNum)
+        ct = [1_700_000_000]
+
+        def close(frames):
+            ct[0] += 5
+            history.ledger_closed(mgr.close_ledger(frames, ct[0]))
+
+        sks = [SecretKey(bytes([i + 1]) * 32) for i in range(4)]
+        close([root.tx([create_account_op(
+            X.AccountID.ed25519(sk.public_key.ed25519), 10 ** 11)
+            for sk in sks])])
+        accts = []
+        for sk in sks:
+            entry = mgr.root.get_entry(X.account_key_xdr(
+                sk.public_key.ed25519))
+            accts.append(TestAccount(mgr, sk, entry.data.value.seqNum))
+        for r in range(8):
+            close([a.tx([native_payment_op(
+                accts[(i + 1) % len(accts)].account_id, 1000 + r)])
+                for i, a in enumerate(accts)])
+        while not history.published_checkpoints or \
+                history.published_checkpoints[-1] != \
+                mgr.last_closed_ledger_seq:
+            close([])
+
+        _keys.clear_verify_cache()
+        cm = CatchupManager(nid_b, passphrase, accel=True, accel_chunk=64,
+                            accel_devices=list(devices),
+                            accel_profile="race")
+        replayed = cm.catchup_complete(archive)
+        assert replayed.lcl_hash == mgr.lcl_hash, \
+            "sharded accel catchup diverged from the source chain"
+        assert cm.offload_hit_rate() == 1.0, cm.stats
+    return {"catchup_ledgers": replayed.last_closed_ledger_seq,
+            "catchup_hashes_identical": True,
+            "catchup_sigs": cm.stats["sigs_total"],
+            "catchup_hit_rate": cm.offload_hit_rate()}

@@ -553,6 +553,60 @@ def test_apply_phase_without_libsodium_runs_no_native_close(
     assert "libsodium" in rep["native"]["why"] or not rep["capply"]
 
 
+# a chain of three checkpoints for the catchup phase: 12 accounts, 130
+# payment ledgers of 2 payments, published as the oracle closes it
+CATCHUP_SMALL = dict(n_payment_ledgers=130, n_accounts=12, txs_per_ledger=2,
+                     group=64)
+
+
+@pytest.fixture(scope="module")
+def published_small(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("chip-smoke-archive"))
+    args = dict(CATCHUP_SMALL)
+    return chip_smoke.apply_archive(args.pop("n_payment_ledgers"), **args,
+                                    archive_dir=path), path
+
+
+def test_catchup_phase_on_the_cpu(published_small, monkeypatch):
+    """The phase at a small size on the plain versions: the archive the
+    oracle published ends on its last ledger, and runs (a)-(c) through
+    CatchupManager and (d) through the command line with three range
+    workers all end on its hash, with every counter printed."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    archive, path = published_small
+    assert archive["published"] == [63, 127, 191]
+    rep = chip_smoke.catchup_phase(archive, path, device="cpu")
+    last = archive["ledgers"][-1]
+    assert (rep["archive_ledgers"], rep["archive_hash"]) \
+        == (191, last["hash"].hex())
+    for name, _, _ in chip_smoke.CATCHUP_RUNS:
+        run = rep[name]
+        assert run["final_hash"] == last["hash"].hex() and run["ledgers"] == 190
+        assert run["stats"]["sigs_total"] == len(archive["fixed"])
+        assert set(run) >= {"offload_hit_rate", "fallback_verify_s",
+                            "kernel_ms_upper", "kernel_share_upper",
+                            "launches"}
+        assert run["launches"]["K-G"] == 0      # the CPU runs plain
+    assert rep["a"]["counters"]["accel.ed25519.generic-sigs"] > 0
+    assert rep["b"]["counters"]["accel.ed25519.table-sigs"] > 0
+    # race: each group either shipped or lost its bounded wait
+    c = rep["c"]["stats"]
+    assert c["sigs_shipped"] + c["sigs_race_lost"] == c["sigs_total"]
+    d = rep["d"]
+    assert d["final_hash"] == last["hash"].hex()
+    assert d["stitches_verified"] == 2 and len(d["ranges"]) == 3
+    assert all(r["launches"] == {"K-G": 0, "K-B": 0, "K-T": 0}
+               for r in d["ranges"])
+
+
+def test_catchup_run_refuses_a_hash_that_is_not_the_tip(published_small):
+    archive, path = published_small
+    tip = chip_smoke.archive_tip(path)
+    with pytest.raises(AssertionError, match="not the archive's tip"):
+        chip_smoke.catchup_run(path, archive["nid"], (tip[0], bytes(32)),
+                               {}, device="cpu")
+
+
 @pytest.mark.parametrize("what, launches, generic, ok", [
     ("K-G", {"K-G": 35, "K-B": 0, "K-T": 0}, 55020, True),
     ("K-G", {"K-G": 35, "K-B": 1, "K-T": 0}, 55020, False),

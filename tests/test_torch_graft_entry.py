@@ -8,7 +8,8 @@ the JAX package's __graft_entry__.py, on the CPU.
   CPU tensor) gives the reference's ``verify_forward`` verdicts, with an R
   corrupted, a window altered and a key swapped, and its count is their
   sum.
-* ``entry`` and ``dryrun_multigpu(4, device="cpu")`` run.
+* ``entry`` and ``dryrun_multigpu(4, device="cpu")`` run, and the dry
+  run's third check, ``dryrun_catchup``, on one and on three CPU shards.
 """
 
 import numpy as np
@@ -118,6 +119,17 @@ def test_shard_devices():
     assert graft_entry.shard_devices(4, "cpu") == (cpu,) * 4
 
 
+@pytest.mark.parametrize("k", [1, 3])
+def test_dryrun_catchup_on_cpu_shards(k):
+    """The dry run's third check alone: the archive replayed with the
+    offload sharded over k CPU shards (race profile), as the reference's
+    replays it over its mesh: the source chain's hash, every signature
+    shipped."""
+    assert graft_entry.dryrun_catchup([torch.device("cpu")] * k) == {
+        "catchup_ledgers": 63, "catchup_hashes_identical": True,
+        "catchup_sigs": 33, "catchup_hit_rate": 1.0}
+
+
 def test_dryrun_multigpu_on_four_cpu_shards(capsys):
     """The dry run's two checks: 128 signatures in 4 shards, the shards'
     counts summed; the safe and splitting maps through the checker sharded
@@ -126,5 +138,8 @@ def test_dryrun_multigpu_on_four_cpu_shards(capsys):
     assert summary == {"signatures": 128, "shards": 4, "cards": 0,
                        "accept_total": 128, "safe_intersects": True,
                        "split_intersects": False,
-                       "split_max_quorums_found": 16}
+                       "split_max_quorums_found": 16,
+                       "catchup_ledgers": 63,
+                       "catchup_hashes_identical": True,
+                       "catchup_sigs": 33, "catchup_hit_rate": 1.0}
     assert "dryrun_multigpu OK" in capsys.readouterr().out

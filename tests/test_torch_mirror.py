@@ -11,11 +11,12 @@ the error it raised) and the test's own outcome; ``assert_mirrored``
 holds the two roots' records equal, byte for byte.
 
 ``cases`` lists a file's tests that the port can run: a test whose body
-names a module the port does not have yet (catchup, history.manager,
-simulation, herder.tx_queue, the work layers) is left out, as is one
-marked slow (the tier-1 run deselects those).  Fixtures are the file's
-own, called as plain functions; ``tmp_path`` and ``monkeypatch`` are
-made here.
+names a module the port does not have yet (the live node's: scp,
+overlay, herder.herder, herder.tx_queue, herder.admission, main.application,
+simulation.simulation) is left out, as is one marked slow (the tier-1 run
+deselects those).  Fixtures are the file's own, called as plain functions
+(a module-scoped one anew for each case); ``tmp_path``,
+``tmp_path_factory`` and ``monkeypatch`` are made here.
 
 The tests of this file check the helper itself.
 """
@@ -44,6 +45,10 @@ _DOTTED = re.compile(r"\bstellar_core_tpu((?:\.\w+)+)")
 _FROM_PKG = re.compile(r"from stellar_core_tpu import (\([^)]*\)|[^\n]+)")
 # the port's native modules are built, not files
 _BUILT = {"_cxdr", "_capply"}
+# names the port defines whose use reaches, through a lazy import inside
+# them, a module the port may lack: simulation.loadgen's AdmissionCampaign
+# runs the live node's admission pipeline
+_REACHES = {"AdmissionCampaign": ".herder.admission"}
 
 
 def ported(dotted: str) -> bool:
@@ -63,8 +68,11 @@ def ported(dotted: str) -> bool:
 
 
 def unported(source: str) -> list:
-    """The modules `source` names that the port does not have."""
+    """The modules `source` names, or reaches through a name of
+    _REACHES, that the port does not have."""
     missing = [m for m in _DOTTED.findall(source) if not ported(m)]
+    missing += [m for name, m in _REACHES.items()
+                if re.search(rf"\b{name}\b", source) and not ported(m)]
     for names in _FROM_PKG.findall(source):
         for n in names.strip("()").replace("\n", " ").split(","):
             n = n.split(" as ")[0].strip()
@@ -193,6 +201,20 @@ def recording(root: str, log: list):
         LM.close_ledger = orig
 
 
+class _TmpPathFactory:
+    """pytest's tmp_path_factory, reduced to mktemp, under one directory."""
+
+    def __init__(self, base: Path):
+        self._base = base
+        self._n = itertools.count()
+
+    def mktemp(self, basename: str, numbered: bool = True) -> Path:
+        path = self._base / (f"{basename}{next(self._n)}" if numbered
+                             else basename)
+        path.mkdir()
+        return path
+
+
 def run_case(filename: str, case: str, root: str) -> dict:
     """Run one test of tests/`filename` on `root` (every parameter set of
     it): {"outcomes": [...], "closes": [...]}."""
@@ -206,7 +228,9 @@ def run_case(filename: str, case: str, root: str) -> dict:
         with tempfile.TemporaryDirectory() as tmp, \
                 pytest.MonkeyPatch.context() as mp, \
                 recording(root, closes):
-            made = {"tmp_path": Path(tmp), "monkeypatch": mp}
+            (Path(tmp) / "case").mkdir()
+            made = {"tmp_path": Path(tmp) / "case", "monkeypatch": mp,
+                    "tmp_path_factory": _TmpPathFactory(Path(tmp))}
             teardown = []
 
             def resolve(name):
@@ -266,15 +290,25 @@ def test_rewrite_points_every_name_at_the_root():
 
 def test_cases_leave_out_what_the_port_lacks():
     assert ported(".ledger.manager") and ported(".xdr")
-    assert ported("._capply")
-    assert not ported(".catchup.catchup") and not ported(".simulation")
-    assert unported("from stellar_core_tpu.history.manager import H\n"
-                    "from stellar_core_tpu import work, xdr\n") \
-        == [".history.manager", ".work"]
+    assert ported("._capply") and ported(".catchup.catchup")
+    assert not ported(".herder.tx_queue") and not ported(".overlay")
+    assert unported("from stellar_core_tpu.herder.tx_queue import Q\n"
+                    "from stellar_core_tpu import scp, xdr\n") \
+        == [".herder.tx_queue", ".scp"]
     names = cases("test_tx_apply.py")
     assert "test_fee_bump" in names
-    # imports catchup and history.manager in its body
-    assert "test_same_source_apply_order_survives_replay" not in names
+    # imports catchup and history.manager in its body, both ported now
+    assert "test_same_source_apply_order_survives_replay" in names
+    # imports herder.tx_queue in its body
+    assert "test_surge_pricing_counts_txs_below_11_and_ops_after" \
+        not in cases("test_protocol_versions.py")
+    # runs an AdmissionCampaign, whose pipeline is herder.admission's
+    assert unported("c = AdmissionCampaign(8)\n") == [".herder.admission"]
+    soroban = cases("test_soroban.py")
+    assert "TestFootprintScheduler.test_admission_campaign_soroban_mix" \
+        not in soroban
+    assert "TestFootprintScheduler.test_mixed_campaign_50_ledgers_hash_identity" \
+        in soroban
 
 
 def test_a_different_close_is_caught(monkeypatch):
