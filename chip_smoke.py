@@ -7,8 +7,8 @@ Builds the port's CUDA kernels from stellar_core_tpu_torch/csrc (nvcc, at
 first use; K-G, K-W, K-T and K-B must show no spills, K-G and K-W no stack
 that could hold their 16-entry tables, K-T and K-B none that could hold a
 point), holds each one against its plain PyTorch version on the card (K-G
-also at a ragged 8,191 signatures and at the admission chunk of 2,048, K-T
-at a ragged 16,383, at 2,048 and with a slot outside the table, K-B at 32
+also at a ragged 8,191 signatures, at the admission chunk of 2,048 and at
+admission's batch of 256, K-T at a ragged 16,383, at 2,048 and with a slot outside the table, K-B at 32
 keys and on the base point alone), measures K-B's chain floor (252
 doublings of one warp's chain), checks the adversarial verdicts on the
 generic path and on the table path, then drives the batch verifier's two
@@ -76,6 +76,37 @@ with every 100th signature's R corrupted (655 bad, 64,881 accepted); and
   thread: where the card waits on the host they also hold the host's
   delay, so they are upper bounds);
 
+* admission (admission): the live node's batched intake,
+  ``AdmissionCampaign`` with accel on the card (the race profile; a warm
+  batch at construction, waited for before the runs; then K-G at about
+  256 signatures a launch).  (a) bench.py's on-device admission row (4,000
+  accounts, batch 256, a tx set of 500 operations, backlog 2,000, 3
+  ledgers of 500 offered transactions) against the same campaign and seed
+  with accel off: every status count and every closed ledger's hash must
+  be the oracle's.  (b) bench.py's sustained and 2x overload campaign
+  (100,000 seed-derived accounts over BucketListDB in a temporary
+  directory, cap 500: 4 ledgers of 500 offered, then 6 of 1,000), held to
+  the bench's bounds (peak queue depth at most 4 x 500, peak admission
+  depth at most the backlog of 2,000);
+
+* consensus (consensus): a standalone validator, ``Herder`` on a
+  VIRTUAL_TIME clock with a singleton quorum set and admission on the
+  card (batch 256, backlog 2,000), a tx set of 1,000 operations, 10,000
+  accounts installed by ``LoadGenerator.install_account_pool``: 10
+  ledgers, each after a burst of 1,000 payments through
+  ``recv_transaction``, closed by SCP (nominate, ballot, externalize,
+  ``close_ledger``), against the same script with accel off: every
+  ledger's hash, tx-set hash and result set must be the oracle's, and
+  every admitted transaction applied.  In admission and consensus the
+  pipeline must warm, every batch of at least accel_min_sigs signatures
+  after it warmed must go to K-G, signatures must be offloaded, and no
+  collect may lose its race or fall back to the CPU; a device job that
+  raises fails the run.  Each prints its rates (tx/s, also net of the
+  clients' key derivations and signing, which run in the campaign's
+  loop), admission latency and batch sizes, the CPU verifies (sync path,
+  small batches) apart from the offloaded signatures, K-G's launches and
+  the collect wait;
+
 * the graft entry (stellar_core_tpu_torch/graft_entry.py): K-W, the
   windows form of K-G, against its plain version on the cold path's 8,192
   signatures, its fused accept count, and ``entry()``'s step; then the
@@ -129,6 +160,7 @@ from stellar_core_tpu_torch.history.archive import (CATEGORY_LEDGER,
 from stellar_core_tpu_torch.history.manager import HistoryManager
 from stellar_core_tpu_torch.herder.quorum_intersection import (
     QuorumIntersectionChecker)
+from stellar_core_tpu_torch.herder.tx_queue import AddResult
 from stellar_core_tpu_torch.ledger import native_apply
 from stellar_core_tpu_torch.ledger.manager import LedgerManager
 from stellar_core_tpu_torch.testutils import (TestAccount, build_tx,
@@ -146,9 +178,10 @@ L = ed25519.L
 N_SIGS = 65536
 HOT_KEYS, HOT_CHUNK = 64, 16384
 COLD_KEYS, COLD_CHUNK = 4096, 8192
-# the admission pipeline's chunk (stellar_core_tpu/herder/admission.py:95),
-# and a ragged chunk whose last warp of quads is partial
-ADMISSION_CHUNK, RAGGED_N = 2048, COLD_CHUNK - 1
+# the admission pipeline's chunk (stellar_core_tpu/herder/admission.py:95)
+# and its batch (:89-92: a flush at 256 signatures, one K-G launch), and a
+# ragged chunk whose last warp of quads is partial
+ADMISSION_CHUNK, ADMISSION_BATCH, RAGGED_N = 2048, 256, COLD_CHUNK - 1
 # a K-G / K-W thread's 16-entry table, were it a local array; a point's
 # four coordinates of 10 limbs (K-T's partial sums, K-B's chain points)
 TABLE_BYTES = 16 * 4 * 40
@@ -1412,6 +1445,490 @@ def catchup_phase(archive: dict, archive_dir: str, device=None) -> dict:
     return report
 
 
+# -- admission and consensus: the live node's intake and ledger closes --------
+
+# bench.py's on-device admission row (:803-808): AdmissionCampaign's knobs
+# and its run; the oracle is the same campaign and seed with accel off
+ADMISSION_KNOBS = {"n_accounts": 4000, "batch_size": 256,
+                   "max_tx_set_ops": 500, "max_backlog": 2000}
+ADMISSION_RUNS = ((3, 500),)
+# bench.py's sustained and 2x overload campaign (:826-868): 100,000
+# seed-derived accounts over BucketListDB, a tx set of 500 operations
+SUSTAINED_ACCOUNTS, SUSTAINED_CAP, SUSTAINED_BACKLOG = 100_000, 500, 2000
+SUSTAINED_RUNS = ((4, SUSTAINED_CAP), (6, 2 * SUSTAINED_CAP))
+# a standalone validator: a singleton quorum set, 10,000 pool accounts,
+# bursts of 1,000 payments through Herder.recv_transaction, a tx set of
+# 1,000 operations (AdmissionCampaign's default max_tx_set_ops)
+CONSENSUS_ACCOUNTS, CONSENSUS_LEDGERS, CONSENSUS_BURST = 10_000, 10, 1000
+CONSENSUS_TX_SET, CONSENSUS_BATCH, CONSENSUS_BACKLOG = 1000, 256, 2000
+CONSENSUS_PASSPHRASE = "chip smoke consensus net"
+CONSENSUS_SEED = 7
+# the longest the warm batch may take: PreverifyPipeline's first collect
+WARM_TIMEOUT_S = 180.0
+ADMISSION_STATS = ("submitted", "admitted", "rejected", "overload",
+                   "prefiltered", "sync_path", "batches", "sigs_offloaded",
+                   "sigs_total", "sigs_shipped", "sigs_not_dispatched",
+                   "sigs_race_lost", "collect_fallbacks", "race_losses",
+                   "dispatch_groups", "dispatch_s", "collect_wait_s")
+
+
+# seed -> (pk, sk) of every key derived under _HostCrypto (see there)
+_KEYPAIRS = {}
+
+
+class _HostCrypto:
+    """The host's Ed25519 calls while the context is open: key derivations
+    (memoized for the script's life in _KEYPAIRS: a seed-derived account
+    pool derives an account's key again at each use, and the oracle and
+    the card's run derive the same keys; the RFC 8032 fallback takes
+    tens of times libsodium's time a key), signatures made by the clients,
+    and verifications (each signature the card did not answer: the sync
+    path's lone arrivals, batches below accel_min_sigs, a lost race),
+    counted and timed."""
+
+    def __init__(self):
+        self.keys, self.keys_s = 0, 0.0
+        self.signs, self.sign_s = 0, 0.0
+        self.verifies, self.verify_s = 0, 0.0
+        self._memo = _KEYPAIRS
+
+    def __enter__(self):
+        self._orig = (sodium.sign_seed_keypair, sodium.sign_detached,
+                      sodium.verify_detached)
+        keypair, sign, verify = self._orig
+
+        def sign_seed_keypair(seed):
+            got = self._memo.get(seed)
+            if got is None:
+                t0 = time.perf_counter()
+                got = self._memo[seed] = keypair(seed)
+                self.keys += 1
+                self.keys_s += time.perf_counter() - t0
+            return got
+
+        def sign_detached(*args):
+            t0 = time.perf_counter()
+            try:
+                return sign(*args)
+            finally:
+                self.signs += 1
+                self.sign_s += time.perf_counter() - t0
+
+        def verify_detached(*args):
+            t0 = time.perf_counter()
+            try:
+                return verify(*args)
+            finally:
+                self.verifies += 1
+                self.verify_s += time.perf_counter() - t0
+
+        (sodium.sign_seed_keypair, sodium.sign_detached,
+         sodium.verify_detached) = sign_seed_keypair, sign_detached, \
+            verify_detached
+        return self
+
+    def __exit__(self, *exc):
+        (sodium.sign_seed_keypair, sodium.sign_detached,
+         sodium.verify_detached) = self._orig
+
+    def snapshot(self) -> dict:
+        return {"keys": self.keys, "keys_s": self.keys_s,
+                "signs": self.signs, "sign_s": self.sign_s,
+                "cpu_verifies": self.verifies, "cpu_verify_s": self.verify_s}
+
+
+class _BatchLog:
+    """Each batch an AdmissionPipeline flushes: its signatures, whether the
+    pipeline had warmed when it chose where the batch verifies, and whether
+    the batch went to the card (its signatures counted as offloaded)."""
+
+    def __init__(self, pipe):
+        self.batches = []
+        flush = pipe._flush
+
+        def logged():
+            sigs, offloaded = pipe._pending_sigs, pipe.stats["sigs_offloaded"]
+            flush()
+            if sigs:
+                self.batches.append(
+                    (sigs, pipe._warmed,
+                     pipe.stats["sigs_offloaded"] > offloaded))
+
+        pipe._flush = logged
+
+
+def wait_warm(pipe) -> float:
+    """Seconds until the pipeline's warm batch (dispatched when it was
+    built) has its verdicts; the pipeline takes them at its next flush.
+    Raises when they have not come within WARM_TIMEOUT_S: the pipeline
+    never warmed, and would admit on the CPU for the whole run."""
+    timeout = WARM_TIMEOUT_S
+    t0 = time.perf_counter()
+    while not pipe._preverify.job_done(pipe._warm_id):
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"the admission pipeline never warmed: its "
+                                 f"warm batch had no verdicts after "
+                                 f"{timeout} s")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def check_card_use(what: str, pipe, log: _BatchLog, launches: dict) -> dict:
+    """The card-usage limits of an accel admission run: the pipeline
+    warmed, every batch of at least accel_min_sigs signatures flushed
+    after it warmed went to the card, signatures were offloaded, K-G
+    launched (on the card; the plain versions count no launch), and no
+    collect lost its race or fell back to the CPU.
+    Returns the batch counts it checked; raises on any limit missed."""
+    stats = pipe.stats
+    eligible = [b for b in log.batches
+                if b[1] and b[0] >= pipe.accel_min_sigs]
+    undispatched = sum(1 for b in eligible if not b[2])
+    counts = {"warmed": pipe._warmed, "batches": len(log.batches),
+              "batches_before_warm": sum(1 for b in log.batches if not b[1]),
+              "eligible_batches": len(eligible),
+              "eligible_not_dispatched": undispatched,
+              "batches_below_min": sum(1 for b in log.batches
+                                       if b[0] < pipe.accel_min_sigs)}
+    faults = []
+    if not pipe._warmed:
+        faults.append("the pipeline never warmed")
+    if undispatched:
+        faults.append(f"{undispatched} batches of >= {pipe.accel_min_sigs} "
+                      f"signatures after warmup were not dispatched")
+    if not stats.get("sigs_offloaded"):
+        faults.append("no signature was offloaded")
+    if pipe._preverify.devices[0].type == "cuda" and not launches.get("K-G"):
+        faults.append("K-G never launched")
+    if stats.get("race_losses") or stats.get("collect_fallbacks"):
+        faults.append(f"{stats.get('race_losses', 0)} races lost, "
+                      f"{stats.get('collect_fallbacks', 0)} collects fell "
+                      f"back to the CPU")
+    if faults:
+        raise AssertionError(f"{what}: {'; '.join(faults)}: {counts} "
+                             f"{dict(stats)}")
+    return counts
+
+
+def _stats(pipe) -> dict:
+    return {k: pipe.stats[k] for k in ADMISSION_STATS if k in pipe.stats}
+
+
+def admission_campaign(accel: bool, runs, device=None, workdir=None,
+                       accel_min_sigs=None, **knobs) -> dict:
+    """One AdmissionCampaign(accel=accel, accel_device=device, workdir,
+    **knobs), its pipeline's accel_min_sigs set where given (the campaign
+    keeps the pipeline's default, 64), and its runs (n_ledgers,
+    offered_per_ledger), after
+    keys.clear_verify_cache() and reset_registry(): each run's report,
+    every status count, every closed ledger's hash, the admission stats,
+    the host's Ed25519 calls (in the install, in all runs and in each),
+    the batches' log and, with accel, the wait for the warm batch (set-up,
+    before the runs) and the launches of the runs (counts set to 0 just
+    before them)."""
+    from stellar_core_tpu_torch.simulation.loadgen import AdmissionCampaign
+    crypto_keys.clear_verify_cache()
+    metrics.reset_registry()
+    with _HostCrypto() as host:
+        t0 = time.perf_counter()
+        c = AdmissionCampaign(workdir=workdir, accel=accel,
+                              accel_device=device, **knobs)
+        install_s = time.perf_counter() - t0
+        if accel_min_sigs is not None:
+            c.admission.accel_min_sigs = accel_min_sigs
+        try:
+            closes = []
+            close = c.mgr.close_ledger
+
+            def recorded(*args, **kw):
+                arts = close(*args, **kw)
+                closes.append(c.mgr.lcl_hash.hex())
+                return arts
+
+            c.mgr.close_ledger = recorded
+            log = _BatchLog(c.admission)
+            warm_s = wait_warm(c.admission) if accel else None
+            snaps = [host.snapshot()]
+            for fn in KERNEL_WRAPPERS.values():
+                fn.launches = 0
+            reports = []
+            for n, offered in runs:
+                reports.append(c.run(n, offered))
+                snaps.append(host.snapshot())
+            launches = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+        finally:
+            c.close()
+
+    def delta(a, b):
+        return {k: b[k] - a[k] for k in b}
+
+    return {"campaign": c, "install_s": install_s, "warm_s": warm_s,
+            "reports": reports, "statuses": dict(c.statuses),
+            "closes": closes, "stats": _stats(c.admission), "log": log,
+            "launches": launches, "host": delta(snaps[0], snaps[-1]),
+            "host_runs": [delta(a, b) for a, b in zip(snaps, snaps[1:])],
+            "host_install": snaps[0]}
+
+
+def _campaign_rates(rep: dict, host: dict) -> dict:
+    """A campaign run's rates: applied tx/s over its wall time, and over
+    that time less the clients' key derivations and signing, which run in
+    the loop (bench.py's sustained_tps counts them too; where libsodium
+    is missing the RFC 8032 fallback makes them a large share)."""
+    client_s = host["keys_s"] + host["sign_s"]
+    return {"applied": rep["applied"], "wall_s": rep["wall_s"],
+            "tps": rep["sustained_tps"], "client_crypto_s": client_s,
+            "tps_net_of_clients": rep["applied"] / max(
+                1e-9, rep["wall_s"] - client_s)}
+
+
+def admission_phase(device=None, knobs=None, runs=ADMISSION_RUNS,
+                    sustained_accounts=SUSTAINED_ACCOUNTS,
+                    sustained_runs=SUSTAINED_RUNS,
+                    sustained_cap=SUSTAINED_CAP,
+                    sustained_backlog=SUSTAINED_BACKLOG,
+                    accel_min_sigs=None) -> dict:
+    """The admission phase: (a) bench.py's on-device admission row, an
+    AdmissionCampaign with accel on `device` (None: the card) against the
+    same campaign and seed with accel off (every status count and every
+    closed ledger's hash equal); (b) its sustained and 2x overload
+    campaign over BucketListDB in a temporary directory, accel on, held
+    to the bench's bounds (peak queue depth at most 4 x the cap, peak
+    admission depth at most max_backlog).  Both held to check_card_use."""
+    knobs = dict(ADMISSION_KNOBS if knobs is None else knobs)
+    oracle = admission_campaign(False, runs, **knobs)
+    card = admission_campaign(True, runs, device,
+                              accel_min_sigs=accel_min_sigs, **knobs)
+    rep = card["reports"][-1]
+    a = {"knobs": knobs, "runs": runs, "install_s": card["install_s"],
+         "warm_s": card["warm_s"], "statuses": card["statuses"],
+         "ledgers": len(card["closes"]), "last_hash": card["closes"][-1],
+         "equals_oracle": True, "stats": card["stats"],
+         "oracle_stats": oracle["stats"], "launches": card["launches"],
+         "host": card["host"], "oracle_host": oracle["host"],
+         **_campaign_rates(rep, card["host"]),
+         "oracle_tps": oracle["reports"][-1]["sustained_tps"],
+         **{k: rep.get(k) for k in ("admission_p50_us", "admission_p99_us",
+                                    "batches", "batch_size_p50",
+                                    "batch_size_p99")}}
+    if (card["statuses"], card["closes"]) \
+            != (oracle["statuses"], oracle["closes"]):
+        raise AssertionError(f"admission (a) differs from its accel-off "
+                             f"oracle: {card['statuses']} {card['closes']} "
+                             f"!= {oracle['statuses']} {oracle['closes']}")
+    a["batch_checks"] = check_card_use("admission (a)", card["campaign"]
+                                       .admission, card["log"],
+                                       card["launches"])
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-admission-") as d:
+        run = admission_campaign(True, sustained_runs, device, workdir=d,
+                                 accel_min_sigs=accel_min_sigs,
+                                 n_accounts=sustained_accounts,
+                                 max_tx_set_ops=sustained_cap,
+                                 max_backlog=sustained_backlog)
+    pipe = run["campaign"].admission
+    rep1, rep2 = run["reports"][0], run["reports"][-1]
+    b = {"accounts": sustained_accounts, "cap": sustained_cap,
+         "runs": sustained_runs, "install_s": run["install_s"],
+         "install_keys_s": run["host_install"]["keys_s"],
+         "warm_s": run["warm_s"], "statuses": run["statuses"],
+         "ledgers": len(run["closes"]), "stats": run["stats"],
+         "launches": run["launches"], "host": run["host"],
+         "sustained": _campaign_rates(rep1, run["host_runs"][0]),
+         "overload": {**_campaign_rates(rep2, run["host_runs"][-1]),
+                      **{k: rep2.get(k) for k in (
+                          "admission_p50_us", "admission_p90_us",
+                          "admission_p99_us", "batches", "batch_size_p50",
+                          "batch_size_p99", "batch_size_max",
+                          "peak_queue_depth", "peak_admission_depth",
+                          "backpressure_engaged", "peak_decoded_entries")}},
+         "shed": pipe.stats["rejected"],
+         "prefiltered": pipe.stats["prefiltered"],
+         "try_again_later": run["statuses"].get(
+             AddResult.STATUS_TRY_AGAIN_LATER, 0),
+         "collect_wait_s": pipe.stats.get("collect_wait_s", 0.0)}
+    if rep2["peak_queue_depth"] > 4 * sustained_cap:
+        raise AssertionError(f"admission (b): the tx queue grew past its "
+                             f"surge bound under 2x overload: {b}")
+    if rep2["peak_admission_depth"] > pipe.max_backlog:
+        raise AssertionError(f"admission (b): the admission backlog grew "
+                             f"past max_backlog under overload: {b}")
+    b["batch_checks"] = check_card_use("admission (b)", pipe, run["log"],
+                                       run["launches"])
+    return {"phase": "admission", "signer": signer_name(), "a": a, "b": b}
+
+
+def consensus_run(accel: bool, device=None, n_accounts=CONSENSUS_ACCOUNTS,
+                  n_ledgers=CONSENSUS_LEDGERS, burst=CONSENSUS_BURST,
+                  tx_set=CONSENSUS_TX_SET, batch_size=CONSENSUS_BATCH,
+                  max_backlog=CONSENSUS_BACKLOG, **knobs) -> dict:
+    """A standalone validator closing `n_ledgers` ledgers by SCP: a Herder
+    on a VIRTUAL_TIME clock with a singleton quorum set, admission enabled
+    (accel on `device` where `accel`), the ledger's maxTxSetSize `tx_set`,
+    `n_accounts` seed-derived accounts installed by LoadGenerator.  Before
+    each trigger a burst of `burst` payments (distinct sources) goes
+    through recv_transaction and the admission drains; then the clock
+    cranks until ledger_closed_hook fires (the first trigger is
+    bootstrap()'s).  After keys.clear_verify_cache() and reset_registry();
+    launch counts set to 0 just before the first burst (after the warm
+    batch, waited for with accel).  Returns each ledger's hash, tx-set
+    hash, result set hash, applied count and the queue left after it, the
+    statuses, the herder's state transitions, the admission stats, the
+    host's Ed25519 calls and the times."""
+    from stellar_core_tpu_torch.herder.herder import Herder
+    from stellar_core_tpu_torch.scp.quorum import singleton_qset
+    from stellar_core_tpu_torch.simulation.loadgen import (LoadGenerator,
+                                                           SeedAccountPool)
+    from stellar_core_tpu_torch.util.clock import ClockMode, VirtualClock
+    crypto_keys.clear_verify_cache()
+    metrics.reset_registry()
+    nid = sha256(CONSENSUS_PASSPHRASE.encode())
+    with _HostCrypto() as host:
+        t0 = time.perf_counter()
+        clock = VirtualClock(ClockMode.VIRTUAL_TIME)
+        lm = LedgerManager(nid, invariant_manager=None)
+        lm.start_new_ledger()
+        lm.lcl_header.maxTxSetSize = tx_set
+        pool = SeedAccountPool(n_accounts, seed=CONSENSUS_SEED)
+        LoadGenerator(lm, seed=CONSENSUS_SEED, clock=clock) \
+            .install_account_pool(pool)
+        node = SecretKey(sha256(b"chip smoke consensus validator"))
+        herder = Herder(clock, lm, node,
+                        singleton_qset(node.public_key.ed25519))
+        herder.enable_admission(accel=accel, accel_device=device,
+                                batch_size=batch_size,
+                                max_backlog=max_backlog, **knobs)
+        pipe = herder.admission
+        log = _BatchLog(pipe)
+        setup_s = time.perf_counter() - t0
+        transitions = []
+        set_state = herder._set_state
+
+        def recorded_state(state, why):
+            if state != herder.state:
+                transitions.append((herder.state, state, why))
+            set_state(state, why)
+
+        herder._set_state = recorded_state
+        closed = []
+        herder.ledger_closed_hook = lambda arts: closed.append(
+            (time.perf_counter(), arts))
+        triggered = []
+        trigger = herder.trigger_next_ledger
+
+        def timed_trigger(seq):
+            triggered.append((seq, time.perf_counter()))
+            trigger(seq)
+
+        herder.trigger_next_ledger = timed_trigger
+        rng = random.Random(CONSENSUS_SEED)
+        try:
+            warm_s = wait_warm(pipe) if accel else None
+            for fn in KERNEL_WRAPPERS.values():
+                fn.launches = 0
+            before = host.snapshot()
+            statuses, ledgers = {}, []
+            admit_s = sign_s = 0.0
+            t_run = time.perf_counter()
+            for k in range(n_ledgers):
+                t0 = time.perf_counter()
+                frames = [build_tx(nid, pool.secret(i), pool.next_seq(i),
+                                   [native_payment_op(pool.account_id(
+                                       rng.randrange(n_accounts)), 100)],
+                                   fee=100 + rng.randrange(200))
+                          for i in rng.sample(range(n_accounts), burst)]
+                t1 = time.perf_counter()
+                sign_s += t1 - t0
+                for f in frames:
+                    code = herder.recv_transaction(f).code
+                    statuses[code] = statuses.get(code, 0) + 1
+                pipe.drain()
+                admit_s += time.perf_counter() - t1
+                if k == 0:
+                    herder.bootstrap()
+                cranks = 0
+                while len(closed) < k + 1:
+                    if cranks == 100_000:
+                        raise AssertionError(f"ledger {k + 1} of the "
+                                             f"validator did not close")
+                    clock.crank()
+                    cranks += 1
+                at, arts = closed[-1]
+                header = arts.header_entry.header
+                results = arts.result_entry.txResultSet
+                ledgers.append({
+                    "seq": header.ledgerSeq, "hash": lm.lcl_hash.hex(),
+                    "tx_set_hash": header.scpValue.txSetHash.hex(),
+                    "result_set_hash": sha256(results.to_xdr()).hex(),
+                    "applied": len(results.results),
+                    "queued_after": herder.tx_queue.size,
+                    "close_time": header.scpValue.closeTime,
+                    "externalize_s": at - triggered[-1][1]})
+            run_s = time.perf_counter() - t_run
+            launches = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+            after = host.snapshot()
+        finally:
+            pipe.close()
+    return {"ledgers": ledgers, "statuses": statuses,
+            "transitions": transitions, "state": herder.state,
+            "stats": _stats(pipe), "log": log, "pipe": pipe,
+            "launches": launches, "setup_s": setup_s, "warm_s": warm_s,
+            "run_s": run_s, "client_sign_s": sign_s, "admit_s": admit_s,
+            "admitted": pipe.stats["admitted"],
+            "host": {k: after[k] - before[k] for k in after}}
+
+
+def _validator_view(run: dict) -> dict:
+    """What of a consensus_run two runs of one script must share."""
+    return {"ledgers": [{k: v for k, v in l.items() if k != "externalize_s"}
+                        for l in run["ledgers"]],
+            "statuses": run["statuses"], "transitions": run["transitions"],
+            "admitted": run["admitted"]}
+
+
+def consensus_phase(device=None, **kw) -> dict:
+    """The consensus phase: consensus_run with accel on `device` (None:
+    the card) against the same script with accel off.  Every ledger's
+    hash, tx-set hash and result set equal to the oracle's, every admitted
+    transaction applied (no queue left after a close), and
+    check_card_use's limits."""
+    oracle = consensus_run(False, **kw)
+    card = consensus_run(True, device, **kw)
+    if _validator_view(card) != _validator_view(oracle):
+        raise AssertionError(f"the validator's ledgers differ from its "
+                             f"accel-off oracle: {_validator_view(card)} != "
+                             f"{_validator_view(oracle)}")
+    left = [l for l in card["ledgers"] if l["queued_after"]]
+    applied = sum(l["applied"] for l in card["ledgers"])
+    if left or applied != card["admitted"]:
+        raise AssertionError(f"the validator left admitted transactions "
+                             f"unapplied: {applied} applied of "
+                             f"{card['admitted']}; {left}")
+    checks = check_card_use("consensus", card["pipe"], card["log"],
+                            card["launches"])
+    lat = [l["externalize_s"] for l in card["ledgers"]]
+    n = len(card["ledgers"])
+    return {"phase": "consensus", "signer": signer_name(),
+            "ledgers": n, "last_hash": card["ledgers"][-1]["hash"],
+            "applied": applied, "equals_oracle": True,
+            "statuses": card["statuses"], "transitions": card["transitions"],
+            "setup_s": card["setup_s"], "warm_s": card["warm_s"],
+            "run_s": card["run_s"], "ledgers_per_s": n / card["run_s"],
+            "consensus_s": sum(lat), "ledgers_per_consensus_s": n / sum(lat),
+            "client_sign_s": card["client_sign_s"],
+            "admit_s": card["admit_s"],
+            "admitted_tx_per_s": card["admitted"] / card["admit_s"],
+            "oracle_admitted_tx_per_s": oracle["admitted"]
+            / oracle["admit_s"],
+            "oracle_run_s": oracle["run_s"],
+            "externalize_s": lat, "stats": card["stats"],
+            # the host's signatures beyond the clients': SCP envelopes
+            "scp_envelope_signs": card["host"]["signs"]
+            - sum(card["statuses"].values()),
+            "launches": card["launches"], "host": card["host"],
+            "oracle_host": oracle["host"], "batch_checks": checks}
+
+
 # -- quorum intersection -----------------------------------------------------
 
 def bound_from(ops_s: float, nbytes: float):
@@ -2035,7 +2552,7 @@ def run(dev) -> int:
     # a ragged n (the last warp's quads past n store nothing) and the
     # admission chunk, against the plain version on the same rows
     kg_sub = {}
-    for m in (RAGGED_N, ADMISSION_CHUNK):
+    for m in (RAGGED_N, ADMISSION_CHUNK, ADMISSION_BATCH):
         sub = tuple(a[:m] for a in kg_args[:3]) + (keys, kg_args[4][:m])
         kg_sub[m] = sub
         kg_bad += int((ed25519.verify_generic(*sub)
@@ -2051,6 +2568,10 @@ def run(dev) -> int:
             lambda: ed25519.verify_generic(*kg_sub[ADMISSION_CHUNK]), 10),
         "bound_2048": bound_ms(ADMISSION_CHUNK * kg_imads(),
                                ADMISSION_CHUNK * (96 + 4 + 1) + keys.numel()),
+        "ms_256": cuda_ms(
+            lambda: ed25519.verify_generic(*kg_sub[ADMISSION_BATCH]), 20),
+        "bound_256": bound_ms(ADMISSION_BATCH * kg_imads(),
+                              ADMISSION_BATCH * (96 + 4 + 1) + keys.numel()),
         "ms_2_streams": two_stream_ms(dev, lambda lo, hi: ed25519.verify_generic(
             kg_args[0][lo:hi], kg_args[1][lo:hi], kg_args[2][lo:hi], keys,
             kg_args[4][lo:hi]), COLD_CHUNK, 5),
@@ -2144,12 +2665,15 @@ def run(dev) -> int:
                                + key_table.numel() + base.numel()),
         "max_abs_err": int((got.int() - want.int()).abs().max())}
     emit({"phase": "kernels-vs-plain",
-          "K-G": {"signatures": [COLD_CHUNK, RAGGED_N, ADMISSION_CHUNK],
+          "K-G": {"signatures": [COLD_CHUNK, RAGGED_N, ADMISSION_CHUNK,
+                                 ADMISSION_BATCH],
                   "mismatches": kg_bad, "imads_per_sig": kg_imads(),
                   "ms": timing["K-G"]["ms"],
                   "ms_2048": timing["K-G"]["ms_2048"],
+                  "ms_256": timing["K-G"]["ms_256"],
                   "bound_ms": timing["K-G"]["bound"][0],
-                  "bound_ms_2048": timing["K-G"]["bound_2048"][0]},
+                  "bound_ms_2048": timing["K-G"]["bound_2048"][0],
+                  "bound_ms_256": timing["K-G"]["bound_256"][0]},
           "K-B": {"keys": kb_keys, "mismatched_bytes": kb_bad,
                   "base_table_mismatched_bytes": kb_base_bad,
                   "imads_per_key": kb_imads(), "ms": timing["K-B"]["ms"],
@@ -2258,6 +2782,16 @@ def run(dev) -> int:
     finally:
         shutil.rmtree(archive_dir, ignore_errors=True)
 
+    # -- admission and consensus: the live node's intake and its closes ---
+    t0 = time.perf_counter()
+    admitted = admission_phase()
+    admitted.update(seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    emit(admitted)
+    t0 = time.perf_counter()
+    consensus = consensus_phase()
+    consensus.update(seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    emit(consensus)
+
     # -- quorum intersection (bench.py config 5) ----------------------------
     widest, at_65536 = quorum_kernels_vs_plain(dev)
     timing.update(widest)
@@ -2294,6 +2828,15 @@ def run(dev) -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t.get("library_ms")})
+    # K-G on admission's path: its launches in each run, its time and bound
+    # at admission's batch of 256 signatures
+    next(k for k in kernels if k["name"] == "K-G").update({
+        "admission_launches": {
+            "admission_a": admitted["a"]["launches"]["K-G"],
+            "admission_b": admitted["b"]["launches"]["K-G"],
+            "consensus": consensus["launches"]["K-G"]},
+        "admission_ms": timing["K-G"]["ms_256"],
+        "admission_bound_ms": timing["K-G"]["bound_256"][0]})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

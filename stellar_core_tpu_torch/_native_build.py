@@ -1,16 +1,17 @@
-"""Build-on-demand for the native XDR codec (native/cxdr.c) and the
-native apply engine (native/capply.c).
+"""Build-on-demand for the native XDR codec (native/cxdr.c), the
+native apply engine (native/capply.c) and the quorum-intersection
+enumeration core (native/cquorum.c).
 
-Counterpart of stellar_core_tpu/_native_build.py, reduced to ``_cxdr`` and
-``_capply``.  The compiled libraries are not tracked in git: at first use
-``load(mod)`` compiles the repo-root C source with the host C compiler
-into build/torch_native/, rebuilds it there whenever the source is newer,
-and imports it as ``stellar_core_tpu_torch.<mod>``.  A missing compiler or
-a failed build raises ImportError, and the caller then runs its
-pure-Python path (xdr/codec.py, the Python ledger close), as the
-reference's does.  The engine dlopen()s libsodium; a Python extension
-resolves dlopen against the interpreter, which always has it, so no
-``-ldl`` is linked.
+Counterpart of stellar_core_tpu/_native_build.py, reduced to ``_cxdr``,
+``_capply`` and ``_cquorum``.  The compiled libraries are not tracked in
+git: at first use ``load(mod)`` compiles the repo-root C source with the
+host C compiler into build/torch_native/, rebuilds it there whenever the
+source is newer, and imports it as ``stellar_core_tpu_torch.<mod>``.  A
+missing compiler or a failed build raises ImportError, and the caller
+then runs its pure-Python path (xdr/codec.py, the Python ledger close,
+the Python enumeration), as the reference's does.  The apply engine
+dlopen()s libsodium; a Python extension resolves dlopen against the
+interpreter, which always has it, so no ``-ldl`` is linked.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ BUILD_DIR = REPO / "build" / "torch_native"
 
 # module name -> C source (relative to the repo root)
 EXTENSIONS = {"_cxdr": "native/cxdr.c",
-              "_capply": "native/capply.c"}
+              "_capply": "native/capply.c",
+              "_cquorum": "native/cquorum.c"}
 
 # setup.py's flags: the sources are warning-clean under them
 _CFLAGS = ["-O2", "-Wall", "-Wextra"]

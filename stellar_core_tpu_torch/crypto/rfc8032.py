@@ -31,19 +31,30 @@ def _pt_add(p, q):
     return (e * f % P, g * h % P, f * g % P, e * h % P)
 
 
-_B_POW2 = []   # B * 2^i, i = 0..255, extended coordinates
+# fixed-base table: _B_TABLE[w][d] = [d * 256^w]B, extended coordinates,
+# w = 0..31, d = 0..255 (built at first use, about 8,000 adds), so that
+# [k]B is at most 32 adds, one a byte of k
+_B_TABLE = []
 
 
 def _base_mult(k: int):
-    if not _B_POW2:
-        pt = (BX, BY, 1, BX * BY % P)
-        for _ in range(256):
-            _B_POW2.append(pt)
-            pt = _pt_add(pt, pt)
+    if not _B_TABLE:
+        base = (BX, BY, 1, BX * BY % P)
+        for _ in range(32):
+            row = [(0, 1, 1, 0)]
+            for _ in range(255):
+                row.append(_pt_add(row[-1], base))
+            _B_TABLE.append(row)
+            base = _pt_add(row[-1], base)
+    if k >> 256:
+        raise ValueError("scalar wider than 256 bits")
     acc = (0, 1, 1, 0)
-    for i in range(k.bit_length()):
-        if (k >> i) & 1:
-            acc = _pt_add(acc, _B_POW2[i])
+    for row in _B_TABLE:
+        if not k:
+            break
+        if k & 255:
+            acc = _pt_add(acc, row[k & 255])
+        k >>= 8
     return acc
 
 

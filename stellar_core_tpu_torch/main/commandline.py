@@ -1,11 +1,12 @@
 """Command line (reference: src/main/CommandLine.{h,cpp}).
 
 The copy of stellar_core_tpu/main/commandline.py, so far its catchup
-subcommands only: catchup (single stream, or --parallel N range workers)
-and catchup-range (one range worker).  `--accel` takes cuda (the card's
-kernels), cpu (their plain versions) or none; the reference's tpu is
-refused.  The node's other subcommands (run, new-db, publish, ...) need
-the live node's modules, which the port does not have yet.
+subcommands, catchup (single stream, or --parallel N range workers) and
+catchup-range (one range worker), and check-quorum-intersection (on the
+CPU, as the reference's).  `--accel` takes cuda (the card's kernels), cpu
+(their plain versions) or none; the reference's tpu is refused.  The
+node's other subcommands (run, new-db, publish, ...) need the overlay and
+the application, which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -260,6 +261,30 @@ def cmd_catchup_range(args) -> int:
     return 0
 
 
+def cmd_check_quorum_intersection(args) -> int:
+    """Check quorum intersection of a quorum-map JSON file (reference:
+    `stellar-core check-quorum-intersection`)."""
+    from ..herder.quorum_intersection import check_intersection
+    from ..crypto.keys import PublicKey
+    from .. import xdr as X
+
+    with open(args.json_path) as f:
+        raw = json.load(f)
+    qmap = {}
+    for node, spec in raw.items():
+        nid = PublicKey.from_strkey(node).ed25519
+        qmap[nid] = X.SCPQuorumSet(
+            threshold=spec["threshold"],
+            validators=[X.NodeID.ed25519(PublicKey.from_strkey(v).ed25519)
+                        for v in spec["validators"]],
+            innerSets=[])
+    res = check_intersection(qmap)
+    print("Network enjoys quorum intersection"
+          if res.intersects
+          else "Network DOES NOT enjoy quorum intersection")
+    return 0 if res.intersects else 2
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="stellar-core-tpu-torch",
@@ -350,6 +375,11 @@ def main(argv=None) -> int:
                    help="checkpoint cadence of the archive's network "
                         "(0 = the default 64)")
     s.set_defaults(fn=cmd_catchup_range)
+
+    s = sub.add_parser("check-quorum-intersection",
+                       help="check a quorum map JSON for intersection")
+    s.add_argument("json_path")
+    s.set_defaults(fn=cmd_check_quorum_intersection)
 
     args = p.parse_args(argv)
     try:

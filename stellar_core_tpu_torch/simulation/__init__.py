@@ -2,8 +2,8 @@
 
 Reference: src/simulation/ (SURVEY.md §2.1).  The copy of
 stellar_core_tpu/simulation/, so far its LoadGenerator only: the
-in-process multi-node networks (simulation.simulation) need scp, overlay
-and herder, which the port does not have yet.
+in-process multi-node networks (simulation.simulation) need the overlay,
+which the port does not have yet.
 """
 
 from .loadgen import LoadGenerator

@@ -22,6 +22,8 @@ Sustained-ingestion additions (ROADMAP item 3):
   pipeline (herder/admission.py) rather than pre-built ledgers: offered
   load per close target, admission verdicts counted, sustained TPS and
   queue-depth behavior measured, overload answered by try-again-later.
+  ``accel_device`` is its pipeline's (herder/admission.py): None the
+  card, "cpu" the plain versions.
 
 Close times are derived from the injected VirtualClock (or advanced by
 ``close_target`` from the LCL when no clock is injected) — never from a
@@ -257,7 +259,7 @@ class AdmissionCampaign:
                  resident_levels: int = 1,
                  install_chunk: int = 20_000,
                  network_passphrase: str = "admission campaign",
-                 soroban_mix: float = 0.0):
+                 soroban_mix: float = 0.0, accel_device=None):
         from ..herder.admission import AdmissionPipeline
         from ..herder.tx_queue import TransactionQueue
         from ..util.clock import ClockMode, VirtualClock
@@ -285,7 +287,7 @@ class AdmissionCampaign:
         self.admission = AdmissionPipeline(
             self.tx_queue, self.mgr, self.clock, accel=accel,
             batch_size=batch_size, flush_delay_s=flush_delay_s,
-            max_backlog=max_backlog)
+            max_backlog=max_backlog, accel_device=accel_device)
         # soroban_mix: fraction of offered txs that are InvokeHostFunction
         # invokes against a per-account contract (the Soroban traffic-mix
         # knob) — they ride the tx queue's resource-limited

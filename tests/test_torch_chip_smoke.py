@@ -5,10 +5,13 @@ operation counts follow the device code, its main-path runs count launches
 and kernel time per call, and the script refuses to run (exit 2, no
 result) without CUDA and fails in a directory that holds only itself."""
 
+import json
 import os
 import shutil
 import subprocess
 import sys
+import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -623,3 +626,168 @@ def test_a_path_must_run_on_its_kernels(what, launches, generic, ok):
     else:
         with pytest.raises(AssertionError, match="launches"):
             chip_smoke.check_path_kernels(what, launches, counters)
+
+
+# -- admission and consensus --------------------------------------------------
+
+# the phases at a small size: the campaign's pipeline dispatches batches of
+# at least 4 signatures (its default, 64, exceeds these batches)
+ADMISSION_SMALL = dict(
+    knobs={"n_accounts": 64, "batch_size": 16, "max_tx_set_ops": 50,
+           "max_backlog": 200},
+    runs=((3, 40),), sustained_accounts=300,
+    sustained_runs=((2, 30), (2, 60)), sustained_cap=30,
+    sustained_backlog=100, accel_min_sigs=4)
+CONSENSUS_SMALL = dict(n_accounts=40, n_ledgers=3, burst=30, batch_size=8,
+                       accel_min_sigs=4, accel_chunk=256)
+
+
+@pytest.fixture
+def plain_admission(monkeypatch):
+    """The preverify pipeline on the plain versions, with a race budget
+    that the plain K-G on the CPU (far slower than the card) never
+    misses."""
+    from stellar_core_tpu_torch.catchup.catchup import PreverifyPipeline
+    monkeypatch.setattr(PreverifyPipeline, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(PreverifyPipeline, "RACE_CPU_S_PER_SIG", 10.0)
+    return PreverifyPipeline
+
+
+def test_admission_phase_on_the_cpu(plain_admission):
+    """(a) equals its accel-off oracle and (b) keeps the bench's bounds,
+    both with every batch after warmup dispatched and none lost."""
+    rep = chip_smoke.admission_phase(device="cpu", **ADMISSION_SMALL)
+    a, b = rep["a"], rep["b"]
+    assert a["equals_oracle"] and a["ledgers"] == 3
+    assert a["statuses"] == {"pending": 120}
+    assert a["stats"]["sigs_offloaded"] > 0
+    assert a["oracle_stats"]["sigs_offloaded"] == 0
+    assert a["batch_checks"]["eligible_not_dispatched"] == 0
+    assert a["launches"]["K-G"] == 0            # the CPU runs plain
+    assert b["ledgers"] == 4
+    assert b["overload"]["peak_queue_depth"] <= 4 * 30
+    assert b["overload"]["peak_admission_depth"] <= 100
+    assert b["stats"]["sigs_offloaded"] > 0
+    assert set(b) >= {"shed", "prefiltered", "collect_wait_s", "install_s",
+                      "sustained", "overload"}
+    json.dumps(rep)
+
+
+def test_consensus_phase_on_the_cpu(plain_admission):
+    """The validator's ledgers equal its accel-off oracle's, every admitted
+    transaction applied, batches on the plain K-G."""
+    rep = chip_smoke.consensus_phase(device="cpu", **CONSENSUS_SMALL)
+    assert rep["equals_oracle"] and rep["ledgers"] == 3
+    assert rep["applied"] == 90 and rep["statuses"] == {"pending": 90}
+    assert rep["transitions"] == [("booting", "tracking", "bootstrap")]
+    assert rep["stats"]["sigs_offloaded"] == 90 - 3   # all but the sync path
+    assert rep["host"]["cpu_verifies"] == 3
+    assert rep["oracle_host"]["cpu_verifies"] == 90
+    assert len(rep["externalize_s"]) == 3
+    json.dumps(rep)
+
+
+def test_consensus_oracle_comparison_sees_a_different_ledger(
+        plain_admission, monkeypatch):
+    """A card run that closes one ledger differently fails the phase."""
+    real = chip_smoke.consensus_run
+
+    def run(accel, device=None, **kw):
+        out = real(accel, device, **kw)
+        if accel:
+            out["ledgers"][1]["hash"] = "00" * 32
+        return out
+
+    monkeypatch.setattr(chip_smoke, "consensus_run", run)
+    with pytest.raises(AssertionError, match="accel-off oracle"):
+        chip_smoke.consensus_phase(device="cpu", **CONSENSUS_SMALL)
+
+
+@pytest.fixture
+def device_gate(monkeypatch, plain_admission):
+    """Installs a stand-in for the device job's gate; a gate that blocks
+    is released when the test ends."""
+    import threading
+    release = threading.Event()
+
+    def install(gate):
+        monkeypatch.setattr(plain_admission, "DEVICE_GATE",
+                            staticmethod(lambda i: gate(i, release)))
+
+    yield install
+    release.set()
+
+
+def never_warms(i, release):
+    if i == 0:                          # the warm batch
+        release.wait(60)
+
+
+def loses_races(i, release):
+    if i >= 1:
+        time.sleep(0.6)                 # past the race's 0.25 s budget
+
+
+@pytest.mark.parametrize("phase", ["admission", "consensus"])
+@pytest.mark.parametrize("gate, match", [
+    (never_warms, "never warmed"), (loses_races, "races lost")],
+    ids=["never-warms", "loses-races"])
+def test_a_phase_fails_when_the_card_is_not_used(
+        phase, gate, match, device_gate, plain_admission, monkeypatch):
+    """A stand-in device job that never delivers the warm batch, or that
+    loses the race of every batch, fails the phase: its results are the
+    oracle's all the same (verified on the CPU), which is why the card's
+    use is checked apart."""
+    device_gate(gate)
+    monkeypatch.setattr(chip_smoke, "WARM_TIMEOUT_S", 2.0)
+    if gate is loses_races:             # the pipeline's own budget
+        monkeypatch.setattr(plain_admission, "RACE_CPU_S_PER_SIG", 40e-6)
+    with pytest.raises(AssertionError, match=match):
+        if phase == "admission":
+            chip_smoke.admission_phase(device="cpu", **ADMISSION_SMALL)
+        else:
+            chip_smoke.consensus_phase(device="cpu", **CONSENSUS_SMALL)
+
+
+class _Pipe:
+    """What check_card_use reads of an AdmissionPipeline."""
+
+    def __init__(self, warmed, stats, device="cuda"):
+        self._warmed = warmed
+        self.accel_min_sigs = 64
+        self.stats = stats
+        self._preverify = types.SimpleNamespace(
+            devices=(torch.device(device),))
+
+
+class _Log:
+    def __init__(self, batches):
+        self.batches = batches
+
+
+GOOD_STATS = {"sigs_offloaded": 512, "race_losses": 0, "collect_fallbacks": 0}
+
+
+@pytest.mark.parametrize("warmed, batches, stats, launches, match", [
+    (True, [(256, False, False), (256, True, True), (10, True, False)],
+     GOOD_STATS, {"K-G": 2}, None),
+    (False, [(256, False, False)], {**GOOD_STATS, "sigs_offloaded": 0},
+     {"K-G": 1}, "never warmed"),
+    (True, [(256, True, True), (256, True, False)], GOOD_STATS, {"K-G": 1},
+     "1 batches of >= 64"),
+    (True, [(256, True, True)], GOOD_STATS, {"K-G": 0}, "K-G never"),
+    (True, [(256, True, True)], {**GOOD_STATS, "collect_fallbacks": 1},
+     {"K-G": 1}, "fell back"),
+    (True, [(32, True, False)], {**GOOD_STATS, "sigs_offloaded": 0},
+     {"K-G": 1}, "no signature was offloaded"),
+])
+def test_card_use_checks(warmed, batches, stats, launches, match):
+    pipe, log = _Pipe(warmed, stats), _Log(batches)
+    if match is None:
+        counts = chip_smoke.check_card_use("run", pipe, log, launches)
+        assert counts["eligible_batches"] == 1
+        assert counts["batches_before_warm"] == 1
+        assert counts["batches_below_min"] == 1
+    else:
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.check_card_use("run", pipe, log, launches)

@@ -55,6 +55,16 @@ CATCHUP = {f"stellar_core_tpu_torch.{m}" for m in (
     "historywork", "historywork.works", "util.process", "accel.mesh",
     "main", "main.config", "main.commandline")}
 
+# the live node's admission and consensus, and the quorum checker's host
+# modules
+LIVE_NODE = {f"stellar_core_tpu_torch.{m}" for m in (
+    "scp", *(f"scp.{s}" for s in ("quorum", "driver", "local_node",
+                                  "nomination", "ballot", "slot", "scp")),
+    "herder", *(f"herder.{h}" for h in ("tx_queue", "admission",
+                                        "pending_envelopes",
+                                        "quorum_tracker", "herder",
+                                        "quorum_intersection")))}
+
 FOUNDATIONS = {f"stellar_core_tpu_torch.{m}" for m in (
     "_native_build", "transactions.signature_checker",
     *(f"util.{u}" for u in ("scheduler", "clock", "lockorder", "cache",
@@ -71,7 +81,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "stellar_core_tpu_torch.crypto.rfc8032",
             "stellar_core_tpu_torch.xdr", "stellar_core_tpu_torch.util",
             "stellar_core_tpu_torch.transactions"} | FOUNDATIONS \
-        | STATE_AND_APPLY | CATCHUP <= set(PORT_MODULES)
+        | STATE_AND_APPLY | CATCHUP | LIVE_NODE <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES + ['chip_smoke']!r}:\n"
@@ -217,13 +227,9 @@ def _module_file(name: str):
 
 
 # lazy imports of modules the port does not have yet, each where it may
-# stand: simulation.loadgen's AdmissionCampaign runs the live node's
-# admission pipeline (herder.admission, herder.tx_queue), copied as the
-# reference wrote it; the campaign runs once those modules are ported
-AWAITING = {"stellar_core_tpu_torch.herder.admission":
-            "stellar_core_tpu_torch/simulation/loadgen.py",
-            "stellar_core_tpu_torch.herder.tx_queue":
-            "stellar_core_tpu_torch/simulation/loadgen.py"}
+# stand (none now: simulation.loadgen's AdmissionCampaign imported the
+# admission pipeline before it was ported)
+AWAITING = {}
 
 
 def test_every_import_inside_the_port_resolves_in_the_port():
@@ -265,7 +271,8 @@ def test_the_resolve_walk_sees_relative_and_lazy_imports():
         ("stellar_core_tpu_torch.herder.tx_queue", ("TransactionQueue",)),
         ("stellar_core_tpu_torch", ("work",)),
         ("stellar_core_tpu_torch.historywork.works", ())]
-    assert _module_file("stellar_core_tpu_torch.herder.tx_queue") is None
+    assert _module_file("stellar_core_tpu_torch.overlay.peer") is None
+    assert _module_file("stellar_core_tpu_torch.herder.tx_queue") is not None
     assert _module_file("stellar_core_tpu_torch.catchup.catchup") is not None
     assert _module_file("stellar_core_tpu_torch.ledger") is not None
 

@@ -11,10 +11,9 @@ the error it raised) and the test's own outcome; ``assert_mirrored``
 holds the two roots' records equal, byte for byte.
 
 ``cases`` lists a file's tests that the port can run: a test whose body
-names a module the port does not have yet (the live node's: scp,
-overlay, herder.herder, herder.tx_queue, herder.admission, main.application,
-simulation.simulation) is left out, as is one marked slow (the tier-1 run
-deselects those).  Fixtures are the file's own, called as plain functions
+names a module the port does not have yet (the live node's overlay,
+main.application, main.status, simulation.simulation) is left out, as is
+one marked slow (the tier-1 run deselects those).  Fixtures are the file's own, called as plain functions
 (a module-scoped one anew for each case); ``tmp_path``,
 ``tmp_path_factory`` and ``monkeypatch`` are made here.
 
@@ -44,7 +43,7 @@ _NAME = re.compile(r"\bstellar_core_tpu\b")
 _DOTTED = re.compile(r"\bstellar_core_tpu((?:\.\w+)+)")
 _FROM_PKG = re.compile(r"from stellar_core_tpu import (\([^)]*\)|[^\n]+)")
 # the port's native modules are built, not files
-_BUILT = {"_cxdr", "_capply"}
+_BUILT = {"_cxdr", "_capply", "_cquorum"}
 # names the port defines whose use reaches, through a lazy import inside
 # them, a module the port may lack: simulation.loadgen's AdmissionCampaign
 # runs the live node's admission pipeline
@@ -291,22 +290,29 @@ def test_rewrite_points_every_name_at_the_root():
 def test_cases_leave_out_what_the_port_lacks():
     assert ported(".ledger.manager") and ported(".xdr")
     assert ported("._capply") and ported(".catchup.catchup")
-    assert not ported(".herder.tx_queue") and not ported(".overlay")
-    assert unported("from stellar_core_tpu.herder.tx_queue import Q\n"
-                    "from stellar_core_tpu import scp, xdr\n") \
-        == [".herder.tx_queue", ".scp"]
+    assert ported("._cquorum") and ported(".scp") and ported(".herder.herder")
+    assert ported(".herder.tx_queue") and ported(".herder.admission")
+    assert not ported(".overlay") and not ported(".main.application")
+    assert not ported(".simulation.simulation")
+    assert unported("from stellar_core_tpu.overlay.peer import Peer\n"
+                    "from stellar_core_tpu import scp, overlay, xdr\n"
+                    "from stellar_core_tpu.main.application import A\n"
+                    "import stellar_core_tpu.simulation.simulation\n") \
+        == [".main.application", ".overlay", ".overlay.peer",
+            ".simulation.simulation"]
     names = cases("test_tx_apply.py")
     assert "test_fee_bump" in names
     # imports catchup and history.manager in its body, both ported now
     assert "test_same_source_apply_order_survives_replay" in names
-    # imports herder.tx_queue in its body
+    # imports herder.tx_queue in its body, ported now
     assert "test_surge_pricing_counts_txs_below_11_and_ops_after" \
-        not in cases("test_protocol_versions.py")
-    # runs an AdmissionCampaign, whose pipeline is herder.admission's
-    assert unported("c = AdmissionCampaign(8)\n") == [".herder.admission"]
+        in cases("test_protocol_versions.py")
+    # runs an AdmissionCampaign, whose pipeline (herder.admission) is
+    # ported now
+    assert unported("c = AdmissionCampaign(8)\n") == []
     soroban = cases("test_soroban.py")
     assert "TestFootprintScheduler.test_admission_campaign_soroban_mix" \
-        not in soroban
+        in soroban
     assert "TestFootprintScheduler.test_mixed_campaign_50_ledgers_hash_identity" \
         in soroban
 
