@@ -107,6 +107,35 @@ with every 100th signature's R corrupted (655 bad, 64,881 accepted); and
   small batches) apart from the offloaded signatures, K-G's launches and
   the collect wait;
 
+* node (node): a node served by the port's ``run`` entry point
+  (``python -m stellar_core_tpu_torch run --conf node.toml``, called on
+  the main thread; the clients drive its HTTP admin from a helper thread
+  and stop it with SIGTERM, the handler ``run`` installs): a TOML config
+  with ACCEL = "cuda", admission on (batch 256, backlog 2,000),
+  ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING (a ledger a second, a
+  checkpoint every 8), a local HISTORY archive and an HTTP_PORT.  Over
+  ``/upgrades`` the tx set grows to 1,000 operations, over ``/tx`` 101
+  transactions create 10,000 accounts, then a burst of 2,000 signed
+  payments goes to ``/tx`` from 8 client threads: every answer must be
+  accepted (PENDING) or a reasoned rejection, every accepted transaction
+  applied, at least two checkpoints published, and the archive the node
+  published, replayed by the port's CatchupManager with accel off, must
+  end on the node's hash of that ledger (its tx sets follow the wall
+  clock, so there is no accel-off run to compare hash by hash);
+
+* network (network): three validators of ``simulation.Simulation`` on a
+  VIRTUAL_TIME clock, a 2-of-3 quorum set (SDF's testnet layout: three
+  validators), loopback peers authenticated by ``PeerAuth`` (X25519 by
+  libsodium, or where it is missing by crypto/rfc7748.py), each node's
+  admission on the card (batch 256, backlog 2,000), 10,000 accounts: a
+  burst of 1,000 payments submitted at one node and flooded by the
+  overlay, then 10 ledgers closed by SCP; every node must close every
+  ledger on the same hash, and the same script with accel off must give
+  the same ledger, tx-set and result set hashes.  In node and network
+  the pipelines are held to the admission phase's card-use limits; each
+  prints its rates, the X25519 path, K-G's launches, the collect wait and
+  its seconds;
+
 * the graft entry (stellar_core_tpu_torch/graft_entry.py): K-W, the
   windows form of K-G, against its plain version on the cold path's 8,192
   signatures, its fused accept count, and ``entry()``'s step; then the
@@ -135,11 +164,14 @@ import json
 import os
 import random
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -1929,6 +1961,592 @@ def consensus_phase(device=None, **kw) -> dict:
             "oracle_host": oracle["host"], "batch_checks": checks}
 
 
+# -- a node served by `run`, and validators over the overlay ------------------
+
+# a node served by `run`: a tx set of 1,000 operations, admission batches
+# of 256 signatures and a backlog of 2,000, 10,000 accounts made by its own
+# transactions (the consensus phase's pool, whose keys are memoized), a
+# burst of 2,000 payments posted to /tx by NODE_CLIENTS threads
+NODE_PASSPHRASE = "chip smoke node net"
+NODE_ACCOUNTS, NODE_BURST, NODE_TX_SET = 10_000, 2000, 1000
+NODE_BATCH, NODE_BACKLOG, NODE_CHUNK = 256, 2000, 2048
+NODE_FUNDED = 100                   # accounts one funder's transaction makes
+NODE_CLIENTS = 32
+# the deadline of a partial batch: one node's /tx intake runs at about a
+# thousand transactions a second, so the default 50 ms flushes batches of
+# 30-50 signatures, under accel_min_sigs (64), all verified on the CPU;
+# 250 ms (inside the 0.5 s admission-latency objective) lets them fill
+NODE_FLUSH_DELAY_S = 0.25
+NODE_CHECKPOINTS = 2
+NODE_TIMEOUT_S = 300.0
+NODE_BALANCE = 10_000_000_000
+# /tx answers that are a reasoned rejection (tx_queue.AddResult's statuses)
+NODE_REJECTIONS = ("ERROR", "DUPLICATE", "TRY_AGAIN_LATER", "BANNED",
+                   "FILTERED")
+# three validators with a 2-of-3 quorum set (SDF's testnet:
+# docs/stellar-core_testnet.cfg names three SDF validators), a burst of
+# 1,000 payments at one of them, 10 ledgers closed by SCP
+NETWORK_PASSPHRASE = "chip smoke network net"
+NETWORK_VALIDATORS, NETWORK_THRESHOLD = 3, 2
+NETWORK_ACCOUNTS, NETWORK_LEDGERS, NETWORK_BURST = 10_000, 10, 1000
+NETWORK_TX_SET, NETWORK_BATCH, NETWORK_BACKLOG = 1000, 256, 2000
+
+
+def x25519_path() -> str:
+    """Which X25519 the overlay's handshakes run on."""
+    return "libsodium" if sodium.available() else \
+        "rfc7748 (crypto/rfc7748.py; libsodium is missing)"
+
+
+def _close_record(arts) -> dict:
+    """A closed ledger: its seq, hash, tx-set hash, result set hash, the
+    number of transactions applied and the hashes of those that
+    succeeded."""
+    header = arts.header_entry.header
+    results = arts.result_entry.txResultSet
+    return {"seq": header.ledgerSeq, "hash": arts.header_entry.hash.hex(),
+            "tx_set_hash": header.scpValue.txSetHash.hex(),
+            "result_set_hash": sha256(results.to_xdr()).hex(),
+            "applied": len(results.results),
+            "succeeded": [pair.transactionHash for pair in results.results
+                          if pair.result.result.switch.name == "txSUCCESS"]}
+
+
+def node_config(path: str, archive: str, http_port: int, accel: str,
+                batch_size: int = NODE_BATCH, max_backlog: int = NODE_BACKLOG,
+                chunk: int = NODE_CHUNK,
+                flush_delay_s: float = NODE_FLUSH_DELAY_S) -> str:
+    """Write the node's TOML config to `path`; returns the path."""
+    with open(path, "w") as f:
+        f.write(f'NETWORK_PASSPHRASE = "{NODE_PASSPHRASE}"\n'
+                f'NODE_SEED = "{SecretKey(sha256(b"chip smoke node")).to_strkey_seed()}"\n'
+                "NODE_IS_VALIDATOR = true\n"
+                "RUN_STANDALONE = true\n"
+                "PEER_PORT = 0\n"
+                f"HTTP_PORT = {http_port}\n"
+                f'ACCEL = "{accel}"\n'
+                f"ACCEL_CHUNK_SIZE = {chunk}\n"
+                "ADMISSION = true\n"
+                f"ADMISSION_BATCH_SIZE = {batch_size}\n"
+                f"ADMISSION_FLUSH_DELAY_S = {flush_delay_s}\n"
+                f"ADMISSION_MAX_BACKLOG = {max_backlog}\n"
+                "ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING = true\n"
+                "\n[HISTORY.local]\n"
+                f'get = "{archive}"\n'
+                f'put = "{archive}"\n')
+    return path
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port: int, path: str, timeout: float = 30.0) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+class _NodeRecorder:
+    """The Application that `run` builds, recorded as it is built: its
+    admission pipeline's batch log (accel_min_sigs set where given) and
+    each ledger it closes (_close_record), appended on the main thread."""
+
+    def __init__(self, accel_min_sigs=None):
+        self.app = None
+        self.log = None
+        self.closes = []
+        self.accel_min_sigs = accel_min_sigs
+
+    def __enter__(self):
+        from stellar_core_tpu_torch.main import application as app_mod
+        self._mod, self._base = app_mod, app_mod.Application
+        rec = self
+
+        class Recorded(self._base):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                pipe = self.herder.admission
+                if pipe is not None:
+                    if rec.accel_min_sigs is not None:
+                        pipe.accel_min_sigs = rec.accel_min_sigs
+                    rec.log = _BatchLog(pipe)
+                hook = self.herder.ledger_closed_hook
+
+                def closed(arts):
+                    hook(arts)
+                    rec.closes.append(_close_record(arts))
+
+                self.herder.ledger_closed_hook = closed
+                rec.app = self
+
+        app_mod.Application = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.Application = self._base
+
+    def applied(self) -> dict:
+        """{transaction hash: the ledger that applied it with success}."""
+        return {h: c["seq"] for c in list(self.closes)
+                for h in c["succeeded"]}
+
+
+def _wait(what: str, pred, timeout: float, stop: threading.Event,
+          every: float = 0.02) -> None:
+    t0 = time.perf_counter()
+    while not pred():
+        if stop.is_set():
+            raise AssertionError(f"{what}: the node stopped")
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(every)
+
+
+def _post_all(port: int, frames, clients: int) -> list:
+    """Each frame's envelope posted to /tx, `clients` requests at a time;
+    the answers in order."""
+    def post(f):
+        return _http(port, "/tx?blob=" + f.envelope.to_xdr().hex())
+
+    with ThreadPoolExecutor(clients) as ex:
+        return list(ex.map(post, frames))
+
+
+def _submit_until_applied(port: int, rec: _NodeRecorder, frames,
+                          timeout: float, stop: threading.Event) -> dict:
+    """Post the set-up transactions to /tx, again after a ledger closes
+    where the queue was full (TRY_AGAIN_LATER), until every one is
+    applied; {content hash: ledger}."""
+    want = {f.content_hash(): f for f in frames}
+    t0 = time.perf_counter()
+    todo = list(frames)
+    while todo:
+        answers = _post_all(port, todo, NODE_CLIENTS)
+        bad = [a for a in answers
+               if a.get("status") not in ("PENDING", "TRY_AGAIN_LATER",
+                                          "DUPLICATE")]
+        if bad:
+            raise AssertionError(f"node: a set-up transaction was "
+                                 f"refused: {bad[:3]}")
+        retry = [f for f, a in zip(todo, answers)
+                 if a["status"] == "TRY_AGAIN_LATER"]
+        seen = len(rec.closes)
+        _wait("node: set-up transactions applied",
+              lambda: (len(rec.closes) > seen if retry else
+                       want.keys() <= rec.applied().keys()),
+              timeout - (time.perf_counter() - t0), stop)
+        todo = retry
+    applied = rec.applied()
+    return {h: applied[h] for h in want}
+
+
+def _node_client(port: int, rec: _NodeRecorder, out: dict,
+                 stop: threading.Event, n_accounts: int, burst: int,
+                 tx_set: int, timeout: float) -> None:
+    """The node's clients, on a helper thread: wait for /info, grow the tx
+    set over /upgrades, create the accounts over /tx, wait for the warm
+    batch, then (launch counts set to 0) post the burst and wait for every
+    accepted payment applied and NODE_CHECKPOINTS checkpoints published,
+    the last at or after the ledger of the last payment.  Fills `out`;
+    stops the node by SIGTERM once it answered."""
+    from stellar_core_tpu_torch.simulation.loadgen import SeedAccountPool
+    up = False
+    try:
+        t0 = time.perf_counter()
+
+        def answers():
+            try:
+                return _http(port, "/info", timeout=2.0) is not None
+            except OSError:
+                return False
+
+        _wait("node: /info", lambda: rec.app is not None and answers(),
+              120.0, stop, every=0.05)
+        up = True
+        out["start_s"] = time.perf_counter() - t0
+        app = rec.app
+        pipe = app.herder.admission
+        if pipe is None:
+            raise AssertionError("node: admission is off")
+        nid = app.network_id
+        _http(port, f"/upgrades?mode=set&upgradetime=0&maxtxsetsize={tx_set}")
+        _wait("node: the tx set upgrade",
+              lambda: app.lm.lcl_header.maxTxSetSize == tx_set, 60.0, stop)
+
+        # the accounts, made by the node's own transactions: root funds
+        # one funder an NODE_FUNDED accounts, each funder makes them
+        t1 = time.perf_counter()
+        pool = SeedAccountPool(n_accounts, seed=CONSENSUS_SEED)
+        n_funders = -(-n_accounts // NODE_FUNDED)
+        if n_funders > 100:
+            raise ValueError("node: at most 100 funders (one transaction)")
+        funders = [SecretKey(sha256(b"chip smoke node funder %d" % j))
+                   for j in range(n_funders)]
+        root = app.lm.root_account_secret()
+        root_seq = app.lm.root.get_entry(X.LedgerKey.account(
+            X.LedgerKeyAccount(accountID=X.AccountID.ed25519(
+                root.public_key.ed25519))).to_xdr()).data.value.seqNum
+        fund = build_tx(nid, root, root_seq + 1, [
+            create_account_op(X.AccountID.ed25519(f.public_key.ed25519),
+                              (NODE_FUNDED + 1) * NODE_BALANCE)
+            for f in funders])
+        at = _submit_until_applied(port, rec, [fund], timeout, stop)
+        funder_seq = at[fund.content_hash()] << 32
+        makes = [build_tx(nid, f, funder_seq + 1, [
+            create_account_op(pool.account_id(i), NODE_BALANCE)
+            for i in range(j * NODE_FUNDED,
+                           min(n_accounts, (j + 1) * NODE_FUNDED))])
+            for j, f in enumerate(funders)]
+        at = _submit_until_applied(port, rec, makes, timeout, stop)
+        seqs = {}
+        for j, f in enumerate(makes):
+            for i in range(j * NODE_FUNDED,
+                           min(n_accounts, (j + 1) * NODE_FUNDED)):
+                seqs[i] = at[f.content_hash()] << 32
+        out["accounts_s"] = time.perf_counter() - t1
+        out["accounts_ledger"] = max(at.values())
+        out["warm_s"] = wait_warm(pipe)
+
+        # the burst
+        rng = random.Random(CONSENSUS_SEED + 1)
+        t2 = time.perf_counter()
+        frames = [build_tx(nid, pool.secret(i), seqs[i] + 1,
+                           [native_payment_op(pool.account_id(
+                               rng.randrange(n_accounts)), 100)],
+                           fee=100 + rng.randrange(200))
+                  for i in rng.sample(range(n_accounts), burst)]
+        out["client_sign_s"] = time.perf_counter() - t2
+        for fn in KERNEL_WRAPPERS.values():
+            fn.launches = 0
+        first = len(rec.closes)
+        t3 = time.perf_counter()
+        answers = _post_all(port, frames, NODE_CLIENTS)
+        out["post_s"] = time.perf_counter() - t3
+        statuses = {}
+        for a in answers:
+            statuses[a.get("status")] = statuses.get(a.get("status"), 0) + 1
+        out["statuses"] = statuses
+        unreasoned = [a for a in answers if a.get("status") != "PENDING"
+                      and not (a.get("status") in NODE_REJECTIONS
+                               and (a.get("result_xdr") or a.get("status")
+                                    != "ERROR"))]
+        if unreasoned:
+            raise AssertionError(f"node: /tx answers that are neither "
+                                 f"accepted nor a reasoned rejection: "
+                                 f"{unreasoned[:3]} ({statuses})")
+        accepted = {f.content_hash() for f, a in zip(frames, answers)
+                    if a["status"] == "PENDING"}
+        out["accepted"] = len(accepted)
+        _wait("node: every accepted payment applied",
+              lambda: accepted <= rec.applied().keys()
+              and pipe.depth == 0, timeout, stop)
+        applied = rec.applied()
+        last = max(applied[h] for h in accepted) if accepted \
+            else rec.closes[-1]["seq"]
+        out["burst_s"] = time.perf_counter() - t3
+        out["burst_ledgers"] = [c["seq"] for c in rec.closes[first:]
+                                if c["seq"] <= last]
+        out["launches"] = {k: fn.launches
+                           for k, fn in KERNEL_WRAPPERS.items()}
+        published = app.history.published_checkpoints
+        _wait("node: checkpoints published",
+              lambda: len(published) >= NODE_CHECKPOINTS
+              and published[-1] >= last, timeout, stop, every=0.05)
+        out["checkpoints"] = list(published)
+        out["lcl"] = app.lm.last_closed_ledger_seq
+        out["run_s"] = time.perf_counter() - t0
+    except BaseException as e:
+        out["error"] = e
+    finally:
+        if up and not stop.is_set():
+            os.kill(os.getpid(), signal.SIGTERM)
+
+
+def node_run(device=None, n_accounts=NODE_ACCOUNTS, burst=NODE_BURST,
+             tx_set=NODE_TX_SET, batch_size=NODE_BATCH,
+             max_backlog=NODE_BACKLOG, chunk=NODE_CHUNK, accel_min_sigs=None,
+             timeout=NODE_TIMEOUT_S, workdir=None) -> dict:
+    """A node served by ``python -m stellar_core_tpu_torch run --conf``
+    (main/commandline.main on this, the main, thread: `run` installs its
+    signal handlers, which work only there), ACCEL "cuda" (`device` None)
+    or "cpu", its clients on a helper thread (_node_client).  After
+    keys.clear_verify_cache() and reset_registry(); the signal handlers
+    and the checkpoint cadence are restored after it.  Then the archive
+    the node published is replayed by CatchupManager with accel off (the
+    verify cache cleared first)."""
+    from stellar_core_tpu_torch.history.archive import (
+        FileHistoryArchive, checkpoint_frequency, set_checkpoint_frequency)
+    from stellar_core_tpu_torch.main import commandline
+    if threading.current_thread() is not threading.main_thread():
+        raise RuntimeError("node_run serves the node on the main thread")
+    crypto_keys.clear_verify_cache()
+    metrics.reset_registry()
+    cadence = checkpoint_frequency()
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT,
+                                                  signal.SIGTERM)}
+    own = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="chip-smoke-node-")
+    archive = os.path.join(workdir, "archive")
+    port = _free_port()
+    conf = node_config(os.path.join(workdir, "node.toml"), archive, port,
+                       "cuda" if device is None else str(device),
+                       batch_size, max_backlog, chunk)
+    out, stop = {}, threading.Event()
+    try:
+        with _HostCrypto() as host, \
+                _NodeRecorder(accel_min_sigs) as rec:
+            client = threading.Thread(
+                target=_node_client, name="chip-smoke-node-client",
+                args=(port, rec, out, stop, n_accounts, burst, tx_set,
+                      timeout), daemon=True)
+            client.start()
+            t0 = time.perf_counter()
+            try:
+                rc = commandline.main(["run", "--conf", conf])
+            finally:
+                stop.set()
+                client.join(timeout + 60.0)
+            serve_s = time.perf_counter() - t0
+            host_all = host.snapshot()
+        if rc != 0:
+            raise AssertionError(f"node: run exited {rc}")
+        if "error" in out:
+            raise out["error"]
+        if rec.app is None or client.is_alive():
+            raise AssertionError(f"node: the node never served its clients "
+                                 f"({out})")
+        pipe = rec.app.herder.admission
+        # the oracle: the published archive replayed on the CPU
+        crypto_keys.clear_verify_cache()
+        t1 = time.perf_counter()
+        cm = CatchupManager(rec.app.network_id, NODE_PASSPHRASE, accel=False)
+        replayed = cm.catchup_complete(FileHistoryArchive(archive))
+        replay_s = time.perf_counter() - t1
+    finally:
+        for s, h in handlers.items():
+            signal.signal(s, h)
+        set_checkpoint_frequency(cadence)
+        if own:
+            shutil.rmtree(workdir, ignore_errors=True)
+    node_hash = {c["seq"]: c["hash"] for c in rec.closes}
+    return {**out, "serve_s": serve_s, "replay_s": replay_s,
+            "replayed": (replayed.last_closed_ledger_seq,
+                         replayed.lcl_hash.hex()),
+            "node_hash": node_hash, "closes": rec.closes, "pipe": pipe,
+            "log": rec.log, "stats": _stats(pipe), "host": host_all,
+            "port": port}
+
+
+def node_phase(device=None, **kw) -> dict:
+    """The node phase: node_run on `device` (None: the card), held to its
+    limits: every /tx answer accepted or a reasoned rejection (checked as
+    the clients read them), every accepted payment applied, the archive's
+    CPU replay on the node's hash of its last checkpoint, and
+    check_card_use's limits."""
+    run = node_run(device, **kw)
+    seq, replay_hash = run["replayed"]
+    if seq not in run["checkpoints"] or run["node_hash"].get(seq) \
+            != replay_hash:
+        raise AssertionError(f"node: the CPU replay of its archive ends at "
+                             f"{seq} on {replay_hash}, the node closed "
+                             f"{run['node_hash'].get(seq)} there "
+                             f"(checkpoints {run['checkpoints']})")
+    if run["stats"].get("admitted", 0) < run["accepted"]:
+        raise AssertionError(f"node: {run['accepted']} accepted, "
+                             f"{run['stats']} admitted")
+    checks = check_card_use("node", run["pipe"], run["log"], run["launches"])
+    n_ledgers = len(run["burst_ledgers"])
+    return {"phase": "node", "signer": signer_name(),
+            "x25519": x25519_path(), "statuses": run["statuses"],
+            "accepted": run["accepted"], "applied": run["accepted"],
+            "accounts_s": run["accounts_s"],
+            "accounts_ledger": run["accounts_ledger"],
+            "warm_s": run["warm_s"], "client_sign_s": run["client_sign_s"],
+            "post_s": run["post_s"],
+            "admitted_tx_per_s": run["accepted"] / run["post_s"],
+            "burst_s": run["burst_s"], "burst_ledgers": n_ledgers,
+            "ledgers_per_s": n_ledgers / run["burst_s"],
+            "checkpoints": run["checkpoints"], "lcl": run["lcl"],
+            "replayed_to": seq, "replay_hash": replay_hash,
+            "replay_s": run["replay_s"], "serve_s": run["serve_s"],
+            "stats": run["stats"], "launches": run["launches"],
+            "collect_wait_s": run["stats"].get("collect_wait_s", 0.0),
+            "host": run["host"], "batch_checks": checks}
+
+
+def network_run(accel: bool, device=None, n_accounts=NETWORK_ACCOUNTS,
+                n_ledgers=NETWORK_LEDGERS, burst=NETWORK_BURST,
+                tx_set=NETWORK_TX_SET, batch_size=NETWORK_BATCH,
+                max_backlog=NETWORK_BACKLOG, **knobs) -> dict:
+    """NETWORK_VALIDATORS validators of simulation.Simulation on its
+    VIRTUAL_TIME clock, a NETWORK_THRESHOLD-of-n quorum set, each with
+    `n_accounts` seed-derived accounts (LoadGenerator.install_account_pool,
+    the same on each) and the ledger's maxTxSetSize `tx_set`, admission on
+    each (SimNode.enable_admission: accel on `device` where `accel`),
+    peers on loopback, authenticated.  With accel, each pipeline's warm
+    batch is waited for; launch counts are set to 0 before the burst:
+    `burst` payments submitted at the first node, every pipeline drained
+    while the overlay floods them, then every validator bootstrapped and
+    the clock cranked until each closed `n_ledgers` ledgers.  Returns each
+    node's closes (_close_record), the statuses, the admission stats and
+    batch logs of every node, the host's Ed25519 calls and the times."""
+    from stellar_core_tpu_torch.simulation.loadgen import (LoadGenerator,
+                                                           SeedAccountPool)
+    from stellar_core_tpu_torch.simulation.simulation import (Simulation,
+                                                              qset_of)
+    crypto_keys.clear_verify_cache()
+    metrics.reset_registry()
+    with _HostCrypto() as host:
+        t0 = time.perf_counter()
+        sim = Simulation(NETWORK_PASSPHRASE.encode(), accel=accel,
+                         accel_device=device)
+        secrets = [SecretKey(sha256(b"chip smoke network validator %d" % i))
+                   for i in range(NETWORK_VALIDATORS)]
+        qset = qset_of([s.public_key.ed25519 for s in secrets],
+                       NETWORK_THRESHOLD)
+        pool = SeedAccountPool(n_accounts, seed=CONSENSUS_SEED)
+        closes = {}
+        for s in secrets:
+            lm = LedgerManager(sim.network_id, invariant_manager=None)
+            lm.start_new_ledger()
+            lm.lcl_header.maxTxSetSize = tx_set
+            LoadGenerator(lm, seed=CONSENSUS_SEED, clock=sim.clock) \
+                .install_account_pool(pool)
+            node = sim.add_node(s, qset, ledger_manager=lm)
+            node.enable_admission(batch_size=batch_size,
+                                  max_backlog=max_backlog, **knobs)
+            hook = node.herder.ledger_closed_hook
+            mine = closes[node.node_id] = []
+
+            def closed(arts, hook=hook, mine=mine):
+                hook(arts)
+                mine.append(_close_record(arts))
+
+            node.herder.ledger_closed_hook = closed
+        pipes = [n.herder.admission for n in sim.nodes]
+        logs = [_BatchLog(p) for p in pipes]
+        try:
+            for i, a in enumerate(sim.nodes):
+                for b in sim.nodes[i + 1:]:
+                    sim.connect(a, b)
+            sim.crank_for_at_least(0.1)
+            peers = [n.overlay.num_authenticated() for n in sim.nodes]
+            if peers != [NETWORK_VALIDATORS - 1] * NETWORK_VALIDATORS:
+                raise AssertionError(f"network: handshakes did not all "
+                                     f"authenticate: {peers}")
+            setup_s = time.perf_counter() - t0
+            warm_s = [wait_warm(p) for p in pipes] if accel else None
+            start = sim.nodes[0].lcl
+            for fn in KERNEL_WRAPPERS.values():
+                fn.launches = 0
+            before = host.snapshot()
+            rng = random.Random(CONSENSUS_SEED + 2)
+            t1 = time.perf_counter()
+            frames = [build_tx(sim.network_id, pool.secret(i),
+                               pool.next_seq(i),
+                               [native_payment_op(pool.account_id(
+                                   rng.randrange(n_accounts)), 100)],
+                               fee=100 + rng.randrange(200))
+                      for i in rng.sample(range(n_accounts), burst)]
+            t2 = time.perf_counter()
+            statuses = {}
+            for f in frames:
+                code = sim.nodes[0].submit(f).code
+                statuses[code] = statuses.get(code, 0) + 1
+            for _ in range(3):          # floods reach the peers, who admit
+                for p in pipes:
+                    p.drain()
+                sim.crank_for_at_least(1.0)
+            admit_s = time.perf_counter() - t2
+            t3 = time.perf_counter()
+            for n in sim.nodes:
+                n.herder.bootstrap()
+            if not sim.crank_until_ledger(start + n_ledgers,
+                                          timeout=60.0 * n_ledgers):
+                raise AssertionError(f"network: ledgers stalled at "
+                                     f"{[n.lcl for n in sim.nodes]}")
+            run_s = time.perf_counter() - t3
+            launches = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+            after = host.snapshot()
+        finally:
+            for p in pipes:
+                p.close()
+    by_node = [closes[n.node_id] for n in sim.nodes]
+    return {"closes": by_node, "statuses": statuses, "start": start,
+            "queued_after": [n.herder.tx_queue.size for n in sim.nodes],
+            "stats": [_stats(p) for p in pipes], "pipes": pipes,
+            "logs": logs, "launches": launches, "setup_s": setup_s,
+            "warm_s": warm_s, "client_sign_s": t2 - t1, "admit_s": admit_s,
+            "run_s": run_s, "admitted": pipes[0].stats["admitted"],
+            "host": {k: after[k] - before[k] for k in after}}
+
+
+def _network_view(run: dict) -> list:
+    """What of a network_run two runs of one script must share: the first
+    validator's ledgers (the others' are held equal to it apart)."""
+    return [{k: v for k, v in c.items() if k != "succeeded"}
+            for c in run["closes"][0]]
+
+
+def network_phase(device=None, **kw) -> dict:
+    """The network phase: network_run with accel on `device` (None: the
+    card) against the same script with accel off.  Every validator closes
+    every ledger on the same hash, tx-set hash and result set; those of
+    the card's run are the oracle's, every admitted transaction is
+    applied on every node, and each pipeline keeps check_card_use's
+    limits."""
+    oracle = network_run(False, **kw)
+    card = network_run(True, device, **kw)
+    for name, run in (("card", card), ("oracle", oracle)):
+        first = _network_view(run)
+        for i, mine in enumerate(run["closes"][1:], 1):
+            view = [{k: v for k, v in c.items() if k != "succeeded"}
+                    for c in mine]
+            n = min(len(view), len(first))
+            if view[:n] != first[:n]:
+                raise AssertionError(f"network ({name}): validator {i} "
+                                     f"closed differently from validator "
+                                     f"0: {view} != {first}")
+    if (_network_view(card), card["statuses"]) \
+            != (_network_view(oracle), oracle["statuses"]):
+        raise AssertionError(f"network: the card's ledgers differ from the "
+                             f"accel-off oracle's: {_network_view(card)} "
+                             f"{card['statuses']} != {_network_view(oracle)} "
+                             f"{oracle['statuses']}")
+    applied = sum(c["applied"] for c in card["closes"][0])
+    if any(card["queued_after"]) or applied != card["admitted"]:
+        raise AssertionError(f"network: admitted transactions left "
+                             f"unapplied: {applied} applied of "
+                             f"{card['admitted']}, queues "
+                             f"{card['queued_after']}")
+    checks = [check_card_use(f"network, validator {i}", p, log,
+                             card["launches"])
+              for i, (p, log) in enumerate(zip(card["pipes"],
+                                               card["logs"]))]
+    n = len(card["closes"][0])
+    return {"phase": "network", "signer": signer_name(),
+            "x25519": x25519_path(), "validators": NETWORK_VALIDATORS,
+            "threshold": NETWORK_THRESHOLD, "ledgers": n,
+            "last_hash": card["closes"][0][-1]["hash"],
+            "applied": applied, "equals_oracle": True,
+            "statuses": card["statuses"], "setup_s": card["setup_s"],
+            "warm_s": card["warm_s"], "client_sign_s": card["client_sign_s"],
+            "admit_s": card["admit_s"],
+            "admitted_tx_per_s": card["admitted"] / card["admit_s"],
+            "run_s": card["run_s"], "ledgers_per_s": n / card["run_s"],
+            "oracle_admit_s": oracle["admit_s"],
+            "oracle_run_s": oracle["run_s"], "stats": card["stats"],
+            "launches": card["launches"],
+            "collect_wait_s": sum(s.get("collect_wait_s", 0.0)
+                                  for s in card["stats"]),
+            "host": card["host"], "oracle_host": oracle["host"],
+            "batch_checks": checks}
+
+
 # -- quorum intersection -----------------------------------------------------
 
 def bound_from(ops_s: float, nbytes: float):
@@ -2482,6 +3100,18 @@ def check_quad_kernels(ptxas: dict) -> None:
                              f"holding a table or point on the stack: {quad}")
 
 
+def admission_launches(admitted: dict, consensus: dict, node: dict,
+                       network: dict) -> dict:
+    """K-G's launches on each path of the live node (the kernels line's
+    admission_launches): the admission phase's two runs, the standalone
+    validator, the node served by `run` and the three validators."""
+    return {"admission_a": admitted["a"]["launches"]["K-G"],
+            "admission_b": admitted["b"]["launches"]["K-G"],
+            "consensus": consensus["launches"]["K-G"],
+            "node": node["launches"]["K-G"],
+            "network": network["launches"]["K-G"]}
+
+
 def smi_line(dev) -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2792,6 +3422,16 @@ def run(dev) -> int:
     consensus.update(seconds=time.perf_counter() - t0, nvidia_smi=smi)
     emit(consensus)
 
+    # -- a node served by `run`, and three validators over the overlay ----
+    t0 = time.perf_counter()
+    node = node_phase()
+    node.update(seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    emit(node)
+    t0 = time.perf_counter()
+    network = network_phase()
+    network.update(seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    emit(network)
+
     # -- quorum intersection (bench.py config 5) ----------------------------
     widest, at_65536 = quorum_kernels_vs_plain(dev)
     timing.update(widest)
@@ -2831,10 +3471,8 @@ def run(dev) -> int:
     # K-G on admission's path: its launches in each run, its time and bound
     # at admission's batch of 256 signatures
     next(k for k in kernels if k["name"] == "K-G").update({
-        "admission_launches": {
-            "admission_a": admitted["a"]["launches"]["K-G"],
-            "admission_b": admitted["b"]["launches"]["K-G"],
-            "consensus": consensus["launches"]["K-G"]},
+        "admission_launches": admission_launches(admitted, consensus, node,
+                                                 network),
         "admission_ms": timing["K-G"]["ms_256"],
         "admission_bound_ms": timing["K-G"]["bound_256"][0]})
     print(smi, flush=True)

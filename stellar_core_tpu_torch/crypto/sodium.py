@@ -10,7 +10,10 @@ rely on hard guarantees.  This module is the CPU oracle that the card's batch
 verifier (accel/ed25519.py) must match bit-for-bit.  Where libsodium does not
 load (the machine with the card need not have it), signing, key generation and
 verification fall back to the port's pure-Python crypto/rfc8032.py, whose
-verify applies libsodium's acceptance rules; the scalarmult calls raise.
+verify applies libsodium's acceptance rules, and the X25519 calls (the
+overlay's handshake keys, survey boxes) to crypto/rfc7748.py, whose bytes and
+low-order refusals are libsodium's.  That is no new feature: it is this
+module's contract kept on a machine without libsodium.
 """
 
 from __future__ import annotations
@@ -108,7 +111,8 @@ def verify_detached(sig: bytes, msg: bytes, pk: bytes) -> bool:
 
 def scalarmult_curve25519_base(sk: bytes) -> bytes:
     if _lib is None:
-        raise RuntimeError("libsodium unavailable")
+        from . import rfc7748
+        return rfc7748.scalarmult_base(sk)
     out = ctypes.create_string_buffer(SCALARMULT_BYTES)
     if _lib.crypto_scalarmult_curve25519_base(out, sk) != 0:
         raise RuntimeError("crypto_scalarmult_curve25519_base failed")
@@ -117,7 +121,12 @@ def scalarmult_curve25519_base(sk: bytes) -> bytes:
 
 def scalarmult_curve25519(sk: bytes, pk: bytes) -> bytes:
     if _lib is None:
-        raise RuntimeError("libsodium unavailable")
+        from . import rfc7748
+        try:
+            return rfc7748.scalarmult(sk, pk)
+        except rfc7748.LowOrderPoint:
+            raise RuntimeError("crypto_scalarmult_curve25519 failed "
+                               "(low order?)") from None
     out = ctypes.create_string_buffer(SCALARMULT_BYTES)
     if _lib.crypto_scalarmult_curve25519(out, sk, pk) != 0:
         raise RuntimeError("crypto_scalarmult_curve25519 failed (low order?)")

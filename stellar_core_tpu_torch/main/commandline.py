@@ -1,12 +1,13 @@
 """Command line (reference: src/main/CommandLine.{h,cpp}).
 
-The copy of stellar_core_tpu/main/commandline.py, so far its catchup
-subcommands, catchup (single stream, or --parallel N range workers) and
-catchup-range (one range worker), and check-quorum-intersection (on the
-CPU, as the reference's).  `--accel` takes cuda (the card's kernels), cpu
-(their plain versions) or none; the reference's tpu is refused.  The
-node's other subcommands (run, new-db, publish, ...) need the overlay and
-the application, which the port does not have yet.
+The copy of stellar_core_tpu/main/commandline.py, so far the node
+(run, new-db), its catchup subcommands, catchup (single stream, or
+--parallel N range workers) and catchup-range (one range worker), and
+check-quorum-intersection (on the CPU, as the reference's).  `--accel`
+and the config's ACCEL take cuda (the card's kernels), cpu (their plain
+versions) or none; the reference's tpu is refused, and so is cuda where
+there is no card.  The other subcommands (publish, self-check, ...) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +22,64 @@ def _load_config(args) -> Config:
     cfg = Config.from_toml(args.conf)
     cfg.apply_process_globals()
     return cfg
+
+
+def _accel(cfg, what: str):
+    """(on, device) of the config's ACCEL, or None after printing why the
+    command cannot run: an ACCEL it refuses, or cuda where there is no
+    card (checked here, before the command touches anything: there is no
+    fallback to the CPU)."""
+    try:
+        accel, accel_device = cfg.accel()
+        if accel:
+            from ..catchup.catchup import (PreverifyPipeline,
+                                           resolve_accel_devices)
+            resolve_accel_devices(accel_device, None,
+                                  PreverifyPipeline.DEFAULT_DEVICE)
+    except (ValueError, RuntimeError) as e:
+        print(f"{what}: {e}", file=sys.stderr)
+        return None
+    return accel, accel_device
+
+
+def cmd_new_db(args) -> int:
+    """Initialize a fresh database at the config's DATABASE path
+    (reference: `stellar-core new-db`)."""
+    cfg = _load_config(args)
+    if not cfg.DATABASE:
+        print("config has no DATABASE path", file=sys.stderr)
+        return 1
+    if _accel(cfg, "new-db") is None:
+        return 1
+    import os
+    for path in (cfg.DATABASE, cfg.DATABASE + "-wal", cfg.DATABASE + "-shm"):
+        if os.path.exists(path):
+            os.unlink(path)
+    from .application import Application
+    app = Application(cfg, listen=False)
+    print(f"new database at {cfg.DATABASE}, genesis ledger "
+          f"{app.lm.last_closed_ledger_seq} hash {app.lm.lcl_hash.hex()}")
+    app.stop()
+    return 0
+
+
+def cmd_run(args) -> int:
+    """Run the node (reference: `stellar-core run`)."""
+    cfg = _load_config(args)
+    if _accel(cfg, "run") is None:
+        return 1
+    from .application import Application
+    app = Application(cfg)
+    import signal
+
+    def shutdown(signum, frame):
+        app.stop()
+
+    signal.signal(signal.SIGINT, shutdown)
+    signal.signal(signal.SIGTERM, shutdown)
+    app.start()
+    app.run()
+    return 0
 
 
 def _resolve_catchup_target(args):
@@ -46,18 +105,10 @@ def cmd_catchup(args) -> int:
     cfg = _load_config(args)
     if args.accel:
         cfg.ACCEL = args.accel
-    try:
-        accel, accel_device = cfg.accel()
-        if accel:
-            # no card for --accel cuda: fail here, before any replay or
-            # worker starts (there is no fallback to the CPU)
-            from ..catchup.catchup import (PreverifyPipeline,
-                                           resolve_accel_devices)
-            resolve_accel_devices(accel_device, None,
-                                  PreverifyPipeline.DEFAULT_DEVICE)
-    except (ValueError, RuntimeError) as e:
-        print(f"catchup: {e}", file=sys.stderr)
+    got = _accel(cfg, "catchup")
+    if got is None:
         return 1
+    accel, accel_device = got
     from ..history.archive import make_archive
 
     if args.archive:
@@ -290,6 +341,14 @@ def main(argv=None) -> int:
         prog="stellar-core-tpu-torch",
         description="stellar-core node with its signature checks on CUDA")
     sub = p.add_subparsers(dest="command", required=True)
+
+    s = sub.add_parser("run", help="run the node")
+    s.add_argument("--conf", required=True)
+    s.set_defaults(fn=cmd_run)
+
+    s = sub.add_parser("new-db", help="initialize a fresh database")
+    s.add_argument("--conf", required=True)
+    s.set_defaults(fn=cmd_new_db)
 
     s = sub.add_parser("catchup", help="catch up from a history archive")
     s.add_argument("--conf", required=True)

@@ -17,6 +17,7 @@ an error: it must not silently mean off here.
 from __future__ import annotations
 
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -83,8 +84,12 @@ class Config:
 
     # signature pre-verification: "cuda" (the default; the card's
     # kernels, and an error where there is no card), "cpu" (their plain
-    # versions) or "none" (off: libsodium on the CPU)
-    ACCEL: str = "cuda"
+    # versions) or "none" (off: libsodium on the CPU).  The environment's
+    # STPU_ACCEL, where set, is the default instead (a config file's
+    # ACCEL still wins), so a whole machine's nodes and commands can be
+    # pointed at the plain versions without editing their configs.
+    ACCEL: str = field(default_factory=lambda: os.environ.get(
+        "STPU_ACCEL") or "cuda")
     ACCEL_CHUNK_SIZE: int = 8192
     # Preverify offload profile (catchup.PreverifyPipeline): "poll" (the
     # default — collect never waits on the device; a miss degrades to

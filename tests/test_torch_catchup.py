@@ -121,11 +121,16 @@ def published(tmp_path_factory):
 def race_in_both(monkeypatch):
     """The race profile with a budget no group misses, pinned in both
     packages (the reference's no_race fixture, test_history_catchup.py):
-    each collect waits for its group, so the counters are exact."""
+    each collect waits for its group, so the counters are exact.  An
+    infinite cost a signature makes every collect's budget the pipeline's
+    COLLECT_TIMEOUT_S, at which a miss is not counted as a race: a finite
+    one (10 s a signature gave a group of one or two pairs 12.5-25 s) is
+    missed on a loaded machine by a group whose job builds its key tables
+    or compiles, on one side only."""
     for mod in (ref_catchup, port_catchup):
         pipe = mod.PreverifyPipeline
         monkeypatch.setattr(pipe, "DEFAULT_PROFILE", pipe.PROFILE_RACE)
-        monkeypatch.setattr(pipe, "RACE_CPU_S_PER_SIG", 10.0)
+        monkeypatch.setattr(pipe, "RACE_CPU_S_PER_SIG", float("inf"))
 
 
 def catchup(root, archive_dir, how="complete", **kw):

@@ -8,9 +8,9 @@ result) without CUDA and fails in a directory that holds only itself."""
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
-import time
 import types
 from pathlib import Path
 
@@ -706,7 +706,10 @@ def test_consensus_oracle_comparison_sees_a_different_ledger(
 @pytest.fixture
 def device_gate(monkeypatch, plain_admission):
     """Installs a stand-in for the device job's gate; a gate that blocks
-    is released when the test ends."""
+    is released when the test ends, and the device workers it parked are
+    joined (a closed pipeline does not wait on its worker, which would
+    otherwise go on verifying the parked batches on the plain versions
+    while the next test runs)."""
     import threading
     release = threading.Event()
 
@@ -716,6 +719,7 @@ def device_gate(monkeypatch, plain_admission):
 
     yield install
     release.set()
+    chip_smoke.join_device_workers(120.0)
 
 
 def never_warms(i, release):
@@ -724,8 +728,11 @@ def never_warms(i, release):
 
 
 def loses_races(i, release):
+    """A barrier, not a sleep: every batch after the warm one blocks until
+    the test ends, so each of their collects misses its race budget
+    however late it comes."""
     if i >= 1:
-        time.sleep(0.6)                 # past the race's 0.25 s budget
+        release.wait()
 
 
 @pytest.mark.parametrize("phase", ["admission", "consensus"])
@@ -739,8 +746,11 @@ def test_a_phase_fails_when_the_card_is_not_used(
     oracle's all the same (verified on the CPU), which is why the card's
     use is checked apart."""
     device_gate(gate)
-    monkeypatch.setattr(chip_smoke, "WARM_TIMEOUT_S", 2.0)
-    if gate is loses_races:             # the pipeline's own budget
+    if gate is never_warms:
+        monkeypatch.setattr(chip_smoke, "WARM_TIMEOUT_S", 2.0)
+    else:                               # the pipeline's own budget; the
+        # warm batch, which the barrier lets through, keeps the phase's
+        # own WARM_TIMEOUT_S however loaded the machine is
         monkeypatch.setattr(plain_admission, "RACE_CPU_S_PER_SIG", 40e-6)
     with pytest.raises(AssertionError, match=match):
         if phase == "admission":
@@ -791,3 +801,118 @@ def test_card_use_checks(warmed, batches, stats, launches, match):
     else:
         with pytest.raises(AssertionError, match=match):
             chip_smoke.check_card_use("run", pipe, log, launches)
+
+
+# -- node and network ----------------------------------------------------------
+
+NODE_SMALL = dict(n_accounts=40, burst=30, batch_size=8, accel_min_sigs=4,
+                  chunk=256, timeout=120.0)
+NETWORK_SMALL = dict(n_accounts=40, n_ledgers=3, burst=30, batch_size=8,
+                     accel_min_sigs=4, accel_chunk=256)
+
+
+def test_node_phase_on_the_cpu(plain_admission):
+    """A node served by `run` with ACCEL "cpu": every /tx answer accepted,
+    every accepted payment applied, two checkpoints published and the
+    archive's replay on the node's hash; batches on the plain K-G."""
+    from stellar_core_tpu_torch.history.archive import checkpoint_frequency
+    cadence = checkpoint_frequency()
+    handler = signal.getsignal(signal.SIGTERM)
+    rep = chip_smoke.node_phase(device="cpu", **NODE_SMALL)
+    assert rep["statuses"] == {"PENDING": 30} and rep["applied"] == 30
+    assert len(rep["checkpoints"]) >= 2
+    assert rep["replayed_to"] == rep["checkpoints"][-1]
+    assert rep["stats"]["sigs_offloaded"] > 0
+    assert rep["batch_checks"]["eligible_not_dispatched"] == 0
+    assert rep["launches"]["K-G"] == 0            # the CPU runs plain
+    assert rep["x25519"] == "libsodium"
+    # run's signal handlers and the node's checkpoint cadence are undone
+    assert signal.getsignal(signal.SIGTERM) is handler
+    assert checkpoint_frequency() == cadence
+    json.dumps(rep)
+
+
+def test_a_node_whose_batches_never_reach_the_device_fails(plain_admission):
+    """A node whose every batch is verified on the CPU (none reaches
+    accel_min_sigs) serves its clients all the same, and fails the phase."""
+    with pytest.raises(AssertionError, match="no signature was offloaded"):
+        chip_smoke.node_phase(device="cpu", **{**NODE_SMALL,
+                                               "accel_min_sigs": 10 ** 6})
+
+
+def test_node_phase_refuses_a_replay_off_the_nodes_hash(plain_admission,
+                                                       monkeypatch):
+    """The archive's CPU replay must end on the node's hash."""
+    real = chip_smoke.node_run
+
+    def run(*args, **kw):
+        out = real(*args, **kw)
+        seq = out["replayed"][0]
+        out["node_hash"][seq] = "00" * 32
+        return out
+
+    monkeypatch.setattr(chip_smoke, "node_run", run)
+    with pytest.raises(AssertionError, match="CPU replay of its archive"):
+        chip_smoke.node_phase(device="cpu", **NODE_SMALL)
+
+
+def test_node_refuses_cuda_without_a_card(monkeypatch):
+    """`run` with ACCEL "cuda" and no card exits 1 before serving."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(AssertionError, match="run exited 1"):
+        chip_smoke.node_run(None, n_accounts=4, burst=2, timeout=5.0)
+
+
+def test_network_phase_on_the_cpu(plain_admission):
+    """Three validators over loopback peers: every ledger the same on each
+    and the accel-off oracle's, every payment applied, batches on the
+    plain K-G."""
+    rep = chip_smoke.network_phase(device="cpu", **NETWORK_SMALL)
+    assert rep["equals_oracle"] and rep["ledgers"] == 3
+    assert rep["applied"] == 30 and rep["statuses"] == {"pending": 30}
+    assert all(s["sigs_offloaded"] > 0 for s in rep["stats"])
+    assert len(rep["batch_checks"]) == 3
+    assert rep["launches"]["K-G"] == 0
+    json.dumps(rep)
+
+
+def test_a_network_node_that_closes_one_ledger_differently_fails(
+        plain_admission, monkeypatch):
+    real = chip_smoke.network_run
+
+    def run(accel, device=None, **kw):
+        out = real(accel, device, **kw)
+        if accel:
+            out["closes"][1][1]["hash"] = "00" * 32
+        return out
+
+    monkeypatch.setattr(chip_smoke, "network_run", run)
+    with pytest.raises(AssertionError, match="validator 1 closed "
+                                             "differently"):
+        chip_smoke.network_phase(device="cpu", **NETWORK_SMALL)
+
+
+def test_network_oracle_comparison_sees_a_different_ledger(
+        plain_admission, monkeypatch):
+    real = chip_smoke.network_run
+
+    def run(accel, device=None, **kw):
+        out = real(accel, device, **kw)
+        if accel:
+            for mine in out["closes"]:
+                mine[0]["tx_set_hash"] = "00" * 32
+        return out
+
+    monkeypatch.setattr(chip_smoke, "network_run", run)
+    with pytest.raises(AssertionError, match="accel-off oracle"):
+        chip_smoke.network_phase(device="cpu", **NETWORK_SMALL)
+
+
+def test_the_kernels_line_carries_the_live_node_launches():
+    def phase(n):
+        return {"launches": {"K-G": n}}
+
+    got = chip_smoke.admission_launches(
+        {"a": phase(1), "b": phase(2)}, phase(3), phase(4), phase(5))
+    assert got == {"admission_a": 1, "admission_b": 2, "consensus": 3,
+                   "node": 4, "network": 5}

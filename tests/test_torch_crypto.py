@@ -146,18 +146,179 @@ def test_sodium_equals_the_reference():
 def test_sodium_fallback_is_rfc8032(monkeypatch):
     """Without libsodium, key generation, signing and verification go to
     crypto/rfc8032.py and make libsodium's bytes and verdicts; the
-    scalarmult calls raise, as the reference's do."""
+    scalarmult calls go to crypto/rfc7748.py and make libsodium's bytes,
+    and refuse a low-order u as libsodium does."""
     want = sodium_scenario(r_sodium, 6)
+    want_x = scalarmult_scenario(r_sodium)
     monkeypatch.setattr(p_sodium, "_lib", None)
     assert not p_sodium.available()
     assert sodium_scenario(p_sodium, 6) == want
-    with pytest.raises(RuntimeError):
-        p_sodium.scalarmult_curve25519_base(bytes(32))
-    with pytest.raises(RuntimeError):
+    assert scalarmult_scenario(p_sodium) == want_x
+    assert p_sodium.scalarmult_curve25519_base(bytes(32)) \
+        == r_sodium.scalarmult_curve25519_base(bytes(32))
+    with pytest.raises(RuntimeError, match="low order"):
         p_sodium.scalarmult_curve25519(bytes(32), bytes(32))
     for name, cases, expected in chip_smoke.adversarial_cases():
         assert [p_sodium.verify_detached(s, m, p) for p, s, m in cases] \
             == expected, name
+
+
+# -- X25519 without libsodium (crypto/rfc7748.py) -------------------------------
+
+# u of the points of order 1, 2, 4 and 8 (the order-8 pair, and 0, 1, p - 1),
+# and the non-canonical p and p + 1
+_P25519 = 2 ** 255 - 19
+LOW_ORDER_U = [0, 1, _P25519 - 1, _P25519, _P25519 + 1,
+               0x00b8495f16056286fdb1329ceb8d09da6ac49ff1fae35616aeb8413b7c7aebe0,
+               0x57119fd0dd4e22d8868e1c58c45c44045bef839c55b1d0b1248c50a3bc959c5f]
+
+
+def _x25519_both(k, u, monkeypatch):
+    """(libsodium's result, the fallback's): 32 bytes, or "refused"."""
+    out = []
+    for lib in (p_sodium._lib, None):
+        monkeypatch.setattr(p_sodium, "_lib", lib)
+        try:
+            out.append(p_sodium.scalarmult_curve25519(k, u))
+        except RuntimeError as e:
+            assert "low order" in str(e)
+            out.append("refused")
+    return out
+
+
+def test_x25519_fallback_equals_libsodium_on_random_pairs(monkeypatch):
+    """256 seeded (scalar, u) pairs, the top bit of u set in half of them
+    and u >= p in some, and the base point: the fallback's bytes are
+    libsodium's, and cryptography's X25519 agrees."""
+    from stellar_core_tpu_torch.crypto import rfc7748
+    rng = random.Random(7748)
+    for i in range(256):
+        k = rand_bytes(rng, 32)
+        u = bytearray(rand_bytes(rng, 32))
+        if i % 2:
+            u[31] |= 0x80
+        if i % 17 == 0:             # a non-canonical u, p + 2 to p + 18
+            u = bytearray((_P25519 + 2 + rng.randrange(17)).to_bytes(
+                32, "little"))
+        want, got = _x25519_both(k, bytes(u), monkeypatch)
+        assert got == want != "refused", (i, k.hex(), bytes(u).hex())
+        monkeypatch.setattr(p_sodium, "_lib", r_sodium._lib)
+        base = p_sodium.scalarmult_curve25519_base(k)
+        monkeypatch.setattr(p_sodium, "_lib", None)
+        assert p_sodium.scalarmult_curve25519_base(k) == base
+        assert rfc7748.scalarmult(k, (9).to_bytes(32, "little")) == base
+    try:
+        from cryptography.hazmat.primitives.asymmetric.x25519 import (
+            X25519PrivateKey, X25519PublicKey)
+    except ImportError:             # the comparison with libsodium stands
+        return
+    for _ in range(32):
+        k, u = rand_bytes(rng, 32), rand_bytes(rng, 32)
+        ours = rfc7748.scalarmult(k, u)
+        theirs = X25519PrivateKey.from_private_bytes(k).exchange(
+            X25519PublicKey.from_public_bytes(u))
+        assert ours == theirs
+        pub = X25519PrivateKey.from_private_bytes(k).public_key()
+        assert rfc7748.scalarmult_base(k) == pub.public_bytes_raw()
+
+
+@pytest.mark.parametrize("u", LOW_ORDER_U, ids=lambda u: hex(u)[:10])
+@pytest.mark.parametrize("top", [0, 1], ids=["top-clear", "top-set"])
+def test_x25519_fallback_refuses_low_order_points(u, top, monkeypatch):
+    """Each low-order u, with the top bit clear or set, is refused by
+    libsodium and by the fallback alike, with the binding's error."""
+    enc = (u | (top << 255)).to_bytes(32, "little")
+    for k in (bytes(range(32)), b"\xff" * 32):
+        assert _x25519_both(k, enc, monkeypatch) == ["refused", "refused"]
+
+
+def test_x25519_fallback_handshakes_with_libsodium(monkeypatch):
+    """A loopback handshake between a port overlay whose X25519 runs on
+    the fallback and one on libsodium authenticates both sides, and a
+    transaction floods across."""
+    import contextlib
+
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    from stellar_core_tpu_torch.herder.herder import Herder
+    from stellar_core_tpu_torch.ledger.manager import LedgerManager
+    from stellar_core_tpu_torch.overlay import (OverlayManager,
+                                                make_loopback_pair)
+    from stellar_core_tpu_torch.overlay.peer_auth import PeerAuth
+    from stellar_core_tpu_torch.simulation.simulation import qset_of
+    from stellar_core_tpu_torch.testutils import network_id
+    from stellar_core_tpu_torch.util.clock import ClockMode, VirtualClock
+
+    lib = p_sodium._lib
+
+    @contextlib.contextmanager
+    def no_libsodium():
+        p_sodium._lib = None
+        try:
+            yield
+        finally:
+            p_sodium._lib = lib
+
+    calls = {"fallback": 0}
+    shared = PeerAuth.shared_keys
+
+    def shared_keys(self, *args):
+        if getattr(self, "on_fallback", False):
+            calls["fallback"] += 1
+            with no_libsodium():
+                return shared(self, *args)
+        return shared(self, *args)
+
+    monkeypatch.setattr(PeerAuth, "shared_keys", shared_keys)
+    nid = network_id("x25519 fallback net")
+    clock = VirtualClock(ClockMode.VIRTUAL_TIME)
+    sks = [SecretKey(bytes([0x0c]) * 32), SecretKey(bytes([0x0d]) * 32)]
+    q = qset_of([s.public_key.ed25519 for s in sks], 2)
+    nodes = []
+    for i, sk in enumerate(sks):
+        lm = LedgerManager(nid)
+        lm.start_new_ledger()
+        herder = Herder(clock, lm, sk, q)
+        with (no_libsodium() if i == 0 else contextlib.nullcontext()):
+            overlay = OverlayManager(clock, herder, nid, sk,
+                                     auth_seed=bytes([i + 1]) * 32)
+        overlay.peer_auth.on_fallback = i == 0
+        nodes.append(overlay)
+    monkeypatch.setattr(p_sodium, "_lib", lib)
+    want_pub = r_sodium.scalarmult_curve25519_base(
+        nodes[0].peer_auth.auth_secret)
+    assert nodes[0].peer_auth.auth_public == want_pub
+    pa, pb = make_loopback_pair(nodes[0], nodes[1])
+    for _ in range(50):
+        clock.crank()
+    assert pa.is_authenticated() and pb.is_authenticated()
+    assert pa.peer_id == sks[1].public_key.ed25519
+    assert pb.peer_id == sks[0].public_key.ed25519
+    assert calls["fallback"] == 1
+    assert isinstance(X.StellarMessage.getPeers(), X.StellarMessage)
+
+
+def test_box_seal_round_trips_across_the_fallback(monkeypatch):
+    """A box sealed on the fallback opens on libsodium and one sealed on
+    libsodium opens on the fallback; a changed byte fails the MAC."""
+    from stellar_core_tpu_torch.crypto import box
+    lib = p_sodium._lib
+    rng = random.Random(74)
+    for seal_lib, open_lib in ((None, lib), (lib, None), (None, None)):
+        monkeypatch.setattr(p_sodium, "_lib", open_lib)
+        pk, sk = box.keypair(rand_bytes(rng, 32))
+        monkeypatch.setattr(p_sodium, "_lib", seal_lib)
+        msg = rand_bytes(rng, rng.randrange(1, 300))
+        blob = box.seal(pk, msg)
+        monkeypatch.setattr(p_sodium, "_lib", open_lib)
+        assert box.seal_open(sk, blob) == msg
+        bad = blob[:70] + bytes([blob[70] ^ 1]) + blob[71:]
+        with pytest.raises(ValueError, match="MAC"):
+            box.seal_open(sk, bad)
+    # keys agree with the reference's box, whichever side made them
+    from stellar_core_tpu.crypto import box as r_box
+    monkeypatch.setattr(p_sodium, "_lib", None)
+    assert box.keypair(b"\x42" * 32) == r_box.keypair(b"\x42" * 32)
 
 
 # -- rfc8032.verify against libsodium ------------------------------------------

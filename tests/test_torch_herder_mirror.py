@@ -8,13 +8,10 @@ set, byte for byte.  The port's preverify pipeline, which the admission
 pipeline's accel path runs on, is pinned to the plain versions on the CPU
 (``PreverifyPipeline.DEFAULT_DEVICE = "cpu"``), on one torch thread.
 
-Cases that name a module the port does not have yet (the overlay,
-main.status, main.application, simulation.simulation) drop out through
-``cases()``: test_admission.py's back-pressure valve into overlay flow
-control, its /health degradation and its overlay soak.
-test_herder_simulation.py runs in-process networks
-(simulation.simulation), and waits with them.  No case is left out by
-name.
+The overlay, main.status and simulation.simulation are ported now, so
+test_admission.py's back-pressure valve into overlay flow control, its
+/health degradation and its overlay soak run too (test_herder_simulation.py
+is mirrored in test_torch_node_mirror.py).  No case is left out.
 """
 
 from __future__ import annotations
@@ -26,8 +23,11 @@ from test_torch_mirror import assert_mirrored, cases
 
 FILES = ("test_scp.py", "test_tx_queue.py", "test_admission.py",
          "test_quorum_intersection.py")
-# the cases cases() leaves out, each for a module the port lacks
-AWAITING_OVERLAY = {
+# the cases cases() leaves out, each for a module the port lacks: none
+# since the overlay was ported
+AWAITING_OVERLAY = set()
+# the three that waited for it
+OVERLAY_CASES = {
     ("test_admission.py",
      "TestBackpressureValve.test_peer_grants_deferred_while_backpressured"),
     ("test_admission.py",
@@ -55,8 +55,8 @@ def test_reference_live_node_tests_on_both_packages(filename, case):
 
 
 def test_every_case_runs_but_those_awaiting_the_overlay():
-    """cases() keeps every test of the four files that is not marked slow,
-    but for the three that need the overlay or main.status."""
+    """cases() keeps every test of the four files that is not marked
+    slow, the three that needed the overlay or main.status among them."""
     import ast
     from test_torch_mirror import TESTS, _marks
     for f in FILES:
@@ -75,3 +75,5 @@ def test_every_case_runs_but_those_awaiting_the_overlay():
                           and "slow" not in _marks(fn)]
         left_out = {(f, c) for c in every} - {(f, c) for c in cases(f)}
         assert left_out == {k for k in AWAITING_OVERLAY if k[0] == f}, f
+        assert {k for k in OVERLAY_CASES if k[0] == f} \
+            <= {(f, c) for c in cases(f)}

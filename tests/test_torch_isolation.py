@@ -65,6 +65,18 @@ LIVE_NODE = {f"stellar_core_tpu_torch.{m}" for m in (
                                         "quorum_tracker", "herder",
                                         "quorum_intersection")))}
 
+# the overlay and the application: the node `run` serves, in-process
+# networks, and their helpers
+NODE = {f"stellar_core_tpu_torch.{m}" for m in (
+    "overlay", *(f"overlay.{o}" for o in ("ban", "peer_manager", "peer_auth",
+                                          "flood", "peer", "overlay_manager",
+                                          "survey", "tcp")),
+    "crypto.box", "crypto.rfc7748",
+    *(f"util.{u}" for u in ("timeseries", "anomaly", "slo", "sampleprof")),
+    *(f"main.{m}" for m in ("status", "maintainer", "selfcheck",
+                            "http_admin", "application")),
+    "simulation.simulation")}
+
 FOUNDATIONS = {f"stellar_core_tpu_torch.{m}" for m in (
     "_native_build", "transactions.signature_checker",
     *(f"util.{u}" for u in ("scheduler", "clock", "lockorder", "cache",
@@ -81,7 +93,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "stellar_core_tpu_torch.crypto.rfc8032",
             "stellar_core_tpu_torch.xdr", "stellar_core_tpu_torch.util",
             "stellar_core_tpu_torch.transactions"} | FOUNDATIONS \
-        | STATE_AND_APPLY | CATCHUP | LIVE_NODE <= set(PORT_MODULES)
+        | STATE_AND_APPLY | CATCHUP | LIVE_NODE | NODE <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES + ['chip_smoke']!r}:\n"
@@ -271,7 +283,8 @@ def test_the_resolve_walk_sees_relative_and_lazy_imports():
         ("stellar_core_tpu_torch.herder.tx_queue", ("TransactionQueue",)),
         ("stellar_core_tpu_torch", ("work",)),
         ("stellar_core_tpu_torch.historywork.works", ())]
-    assert _module_file("stellar_core_tpu_torch.overlay.peer") is None
+    assert _module_file("stellar_core_tpu_torch.simulation.chaos") is None
+    assert _module_file("stellar_core_tpu_torch.overlay.peer") is not None
     assert _module_file("stellar_core_tpu_torch.herder.tx_queue") is not None
     assert _module_file("stellar_core_tpu_torch.catchup.catchup") is not None
     assert _module_file("stellar_core_tpu_torch.ledger") is not None

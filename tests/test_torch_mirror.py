@@ -11,11 +11,14 @@ the error it raised) and the test's own outcome; ``assert_mirrored``
 holds the two roots' records equal, byte for byte.
 
 ``cases`` lists a file's tests that the port can run: a test whose body
-names a module the port does not have yet (the live node's overlay,
-main.application, main.status, simulation.simulation) is left out, as is
-one marked slow (the tier-1 run deselects those).  Fixtures are the file's own, called as plain functions
+names a module the port does not have yet (the chaos campaigns, the
+fleet, the fuzzers, lint) is left out, as is one marked slow (the tier-1
+run deselects those).  Fixtures are the file's own, called as plain functions
 (a module-scoped one anew for each case); ``tmp_path``,
-``tmp_path_factory`` and ``monkeypatch`` are made here.
+``tmp_path_factory`` and ``monkeypatch`` are made here.  As under pytest,
+the file's autouse fixtures (its own and its class's) come first, then a
+class's ``setup_method``; ``teardown_method`` runs after the case, and a
+fixture argument with a default keeps it.
 
 The tests of this file check the helper itself.
 """
@@ -132,6 +135,20 @@ def rewrite(source: str, root: str) -> str:
 _loaded: dict = {}
 
 
+def _autouse(tree) -> dict:
+    """{None: the module's autouse fixtures, class name: its own}, in
+    the order the file defines them."""
+    def names(body):
+        return [n.name for n in body if isinstance(n, ast.FunctionDef)
+                and any("fixture" in ast.unparse(d) and "autouse=True"
+                        in ast.unparse(d) for d in n.decorator_list)]
+    out = {None: names(tree.body)}
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef):
+            out[node.name] = names(node.body)
+    return out
+
+
 def load(filename: str, root: str):
     """tests/`filename` compiled against `root`, once a process."""
     key = (filename, root)
@@ -141,8 +158,9 @@ def load(filename: str, root: str):
         mod = types.ModuleType(name)
         mod.__file__ = str(path)
         sys.modules[name] = mod
-        exec(compile(rewrite(path.read_text(), root), str(path), "exec"),
-             mod.__dict__)
+        src = path.read_text()
+        mod.__mirror_autouse__ = _autouse(ast.parse(src))
+        exec(compile(rewrite(src, root), str(path), "exec"), mod.__dict__)
         _loaded[key] = mod
     return _loaded[key]
 
@@ -214,6 +232,13 @@ class _TmpPathFactory:
         return path
 
 
+def _xunit(owner, name: str, fn) -> None:
+    """owner.name(fn) or owner.name(), where the class defines it."""
+    method = getattr(owner, name, None)
+    if method is not None:
+        method(*[fn][:len(inspect.signature(method).parameters)])
+
+
 def run_case(filename: str, case: str, root: str) -> dict:
     """Run one test of tests/`filename` on `root` (every parameter set of
     it): {"outcomes": [...], "closes": [...]}."""
@@ -237,8 +262,9 @@ def run_case(filename: str, case: str, root: str) -> dict:
                     return params[name]
                 if name not in made:
                     fixture = getattr(owner, name, None) or getattr(mod, name)
-                    args = [resolve(p) for p in
-                            inspect.signature(fixture).parameters]
+                    args = [resolve(p) for p, v in
+                            inspect.signature(fixture).parameters.items()
+                            if v.default is inspect.Parameter.empty]
                     if inspect.isgeneratorfunction(fixture):
                         gen = fixture(*args)
                         made[name] = next(gen)
@@ -248,9 +274,16 @@ def run_case(filename: str, case: str, root: str) -> dict:
                 return made[name]
 
             def call():
+                for name in (mod.__mirror_autouse__[None]
+                             + mod.__mirror_autouse__.get(cls_name, [])):
+                    resolve(name)
+                _xunit(owner, "setup_method", fn)
                 args = {p: resolve(p)
                         for p in inspect.signature(fn).parameters}
-                fn(**args)
+                try:
+                    fn(**args)
+                finally:
+                    _xunit(owner, "teardown_method", fn)
 
             outcomes.append(_outcome(call))
             for gen in reversed(teardown):
@@ -292,14 +325,17 @@ def test_cases_leave_out_what_the_port_lacks():
     assert ported("._capply") and ported(".catchup.catchup")
     assert ported("._cquorum") and ported(".scp") and ported(".herder.herder")
     assert ported(".herder.tx_queue") and ported(".herder.admission")
-    assert not ported(".overlay") and not ported(".main.application")
-    assert not ported(".simulation.simulation")
+    # the overlay and the application, ported now
+    assert ported(".overlay") and ported(".overlay.peer")
+    assert ported(".main.application") and ported(".simulation.simulation")
+    assert not ported(".simulation.chaos") and not ported(".fuzz")
+    assert not ported(".lint") and not ported(".simulation.fleet")
     assert unported("from stellar_core_tpu.overlay.peer import Peer\n"
-                    "from stellar_core_tpu import scp, overlay, xdr\n"
-                    "from stellar_core_tpu.main.application import A\n"
-                    "import stellar_core_tpu.simulation.simulation\n") \
-        == [".main.application", ".overlay", ".overlay.peer",
-            ".simulation.simulation"]
+                    "from stellar_core_tpu import scp, overlay, fuzz, xdr\n"
+                    "from stellar_core_tpu.simulation.chaos import C\n"
+                    "import stellar_core_tpu.simulation.simulation\n"
+                    "import stellar_core_tpu.lint.rules\n") \
+        == [".fuzz", ".lint.rules", ".simulation.chaos"]
     names = cases("test_tx_apply.py")
     assert "test_fee_bump" in names
     # imports catchup and history.manager in its body, both ported now
