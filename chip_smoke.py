@@ -113,7 +113,8 @@ with every 100th signature's R corrupted (655 bad, 64,881 accepted); and
   and stop it with SIGTERM, the handler ``run`` installs): a TOML config
   with ACCEL = "cuda", admission on (batch 256, backlog 2,000),
   ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING (a ledger a second, a
-  checkpoint every 8), a local HISTORY archive and an HTTP_PORT.  Over
+  checkpoint every 8), a DATABASE and bucket directory (kept for the
+  commands phase), a local HISTORY archive and an HTTP_PORT.  Over
   ``/upgrades`` the tx set grows to 1,000 operations, over ``/tx`` 101
   transactions create 10,000 accounts, then a burst of 2,000 signed
   payments goes to ``/tx`` from 8 client threads: every answer must be
@@ -135,6 +136,33 @@ with every 100th signature's R corrupted (655 bad, 64,881 accepted); and
   the pipelines are held to the admission phase's card-use limits; each
   prints its rates, the X25519 path, K-G's launches, the collect wait and
   its seconds;
+
+* fleet (fleet): ``python -m stellar_core_tpu_torch fleet --nodes 5`` as a
+  subprocess on the command's defaults, the reference's acceptance fleet:
+  five `run` processes over real TCP (a simple majority, a checkpoint
+  every 8 ledgers, one shared archive), traffic at 25 tx/s over 60
+  accounts, node 2 killed at ledger 6 and rejoined by ``catchup --parallel
+  2`` against the live archive, a 3-2 partition for 6 s and its heal, a
+  rolling config change over all five; no STPU_ACCEL, so every node and
+  range worker takes ACCEL "cuda".  The command must exit 0 and its
+  report meet the acceptance test's SLOs and checks
+  (tests/test_fleet.py:218-269); every node process must have opened the
+  card and launched K-G (its warm batch; its /metrics ``accel`` section,
+  kept per process in the report), every range of the rejoin must have
+  launched K-G and shipped verdicts from the card (its line in
+  catchup.log), and the archive replayed on the CPU (``catchup --accel
+  none``) must end on the hash the nodes reported for its tip.  It prints
+  the seconds, ledgers/s, PENDING and shed counts, the retracking and roll
+  seconds, K-G launches and admission batches on the card and on the CPU
+  per node, the rejoin's ranges, and each process's card memory where
+  ``nvidia-smi --query-compute-apps`` answers;
+
+* commands (commands): the port's command line over the node phase's
+  durable state after it stopped (its DATABASE, buckets and archive),
+  ACCEL = "cuda": self-check, offline-info, diag-bucket-stats,
+  dump-ledger, verify-checkpoints and report-last-history-checkpoint
+  (held to the node's last ledger and its archive's CPU replay), publish,
+  and new-hist into a second archive;
 
 * the graft entry (stellar_core_tpu_torch/graft_entry.py): K-W, the
   windows form of K-G, against its plain version on the cold path's 8,192
@@ -159,10 +187,12 @@ thousand distinct triples (and envelopes) and tile them.
 
 from __future__ import annotations
 
+import faulthandler
 import hashlib
 import json
 import os
 import random
+import re
 import shutil
 import signal
 import subprocess
@@ -2016,7 +2046,9 @@ def node_config(path: str, archive: str, http_port: int, accel: str,
                 batch_size: int = NODE_BATCH, max_backlog: int = NODE_BACKLOG,
                 chunk: int = NODE_CHUNK,
                 flush_delay_s: float = NODE_FLUSH_DELAY_S) -> str:
-    """Write the node's TOML config to `path`; returns the path."""
+    """Write the node's TOML config to `path`, its DATABASE and buckets
+    beside it; returns the path."""
+    state = os.path.dirname(os.path.abspath(path))
     with open(path, "w") as f:
         f.write(f'NETWORK_PASSPHRASE = "{NODE_PASSPHRASE}"\n'
                 f'NODE_SEED = "{SecretKey(sha256(b"chip smoke node")).to_strkey_seed()}"\n'
@@ -2031,6 +2063,8 @@ def node_config(path: str, archive: str, http_port: int, accel: str,
                 f"ADMISSION_FLUSH_DELAY_S = {flush_delay_s}\n"
                 f"ADMISSION_MAX_BACKLOG = {max_backlog}\n"
                 "ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING = true\n"
+                f'DATABASE = "{state}/node.db"\n'
+                f'BUCKET_DIR_PATH = "{state}/buckets"\n'
                 "\n[HISTORY.local]\n"
                 f'get = "{archive}"\n'
                 f'put = "{archive}"\n')
@@ -2305,11 +2339,15 @@ def node_run(device=None, n_accounts=NODE_ACCOUNTS, burst=NODE_BURST,
                       timeout), daemon=True)
             client.start()
             t0 = time.perf_counter()
+            # a node that never stops fails the phase with every thread's
+            # stack instead of holding the card until the script's limit
+            faulthandler.dump_traceback_later(timeout + 120.0, exit=True)
             try:
                 rc = commandline.main(["run", "--conf", conf])
             finally:
                 stop.set()
                 client.join(timeout + 60.0)
+                faulthandler.cancel_dump_traceback_later()
             serve_s = time.perf_counter() - t0
             host_all = host.snapshot()
         if rc != 0:
@@ -2372,6 +2410,8 @@ def node_phase(device=None, **kw) -> dict:
             "ledgers_per_s": n_ledgers / run["burst_s"],
             "checkpoints": run["checkpoints"], "lcl": run["lcl"],
             "replayed_to": seq, "replay_hash": replay_hash,
+            "last_closed": (run["closes"][-1]["seq"],
+                            run["closes"][-1]["hash"]),
             "replay_s": run["replay_s"], "serve_s": run["serve_s"],
             "stats": run["stats"], "launches": run["launches"],
             "collect_wait_s": run["stats"].get("collect_wait_s", 0.0),
@@ -2545,6 +2585,455 @@ def network_phase(device=None, **kw) -> dict:
                                   for s in card["stats"]),
             "host": card["host"], "oracle_host": oracle["host"],
             "batch_checks": checks}
+
+
+# -- the fleet: five `run` processes over TCP, a rejoin by parallel catchup ---
+
+# the reference's acceptance fleet (tests/test_fleet.py:210-221): the
+# `fleet` command's defaults (five validators, a simple majority, a
+# checkpoint every 8 ledgers, one shared file archive; the standard
+# schedule at 25 tx/s over 60 accounts, native-close differential 8), held
+# to the acceptance test's SLOs, which are tighter than the command's
+FLEET_NODES = 5
+FLEET_PASSPHRASE = "fleet soak net"      # simulation.fleet.Fleet's default
+FLEET_CHECKPOINT_FREQUENCY = 8
+FLEET_KILLED = 2                         # standard_schedule's kill node
+FLEET_SLOS = {"max_p99_close_s": 2.0, "max_shed_rate": 0.35,
+              "max_retracking_s": 90.0, "max_roll_node_s": 60.0}
+FLEET_TIMEOUT_S = 900.0
+# a range's line in the rejoin's catchup.log (catchup.parallel.range_summary,
+# printed by `catchup --parallel`) and the command's last line
+RANGE_LINE = re.compile(
+    r"^range (\d+): (\d+) ledgers to (\d+) \(([\d.]+) ledgers/s\), offload "
+    r"hit rate ([\d.]+), launches (\{.*\}|none)$", re.M)
+CAUGHT_UP = re.compile(r"^caught up to ledger (\d+) hash ([0-9a-f]{64}) "
+                       r"\((\d+) ranges, (\d+) stitches verified", re.M)
+
+
+def _repo_env(**kw) -> dict:
+    """This process's environment with the repo on PYTHONPATH and STPU_ACCEL
+    left out, updated with `kw`."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "STPU_ACCEL"}
+    env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    env.update(kw)
+    return env
+
+
+def smi_compute_apps() -> dict:
+    """{pid: MiB} of the processes holding a CUDA context, as nvidia-smi
+    --query-compute-apps gives them; {} where it does not answer."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=20)
+    except (OSError, subprocess.TimeoutExpired):
+        return {}
+    apps = {}
+    for line in out.stdout.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit() and parts[1].isdigit():
+            apps[int(parts[0])] = int(parts[1])
+    return apps
+
+
+def fleet_run(workdir: str) -> dict:
+    """`python -m stellar_core_tpu_torch fleet --nodes 5 --workdir
+    <workdir>` as a subprocess, on the command's defaults and with
+    STPU_ACCEL unset, so every node and range worker takes ACCEL "cuda".
+    While it runs, nvidia-smi's compute apps are sampled every 2 s (the
+    most card memory each process held, where it answers).  Then the
+    fleet's archive is replayed on the CPU by `catchup --accel none`.
+    Returns the exit code, the seconds and the CPU seconds of all its
+    processes, the kernel libraries built while it ran, the report, the
+    rejoin's catchup.log, the merged trace's events, the samples, each
+    node's stored hash of the archive's tip ledger and the replay's
+    (ledger, hash)."""
+    env = _repo_env()
+    peak, stop = {}, threading.Event()
+
+    def sample():
+        while not stop.wait(2.0):
+            for pid, mib in smi_compute_apps().items():
+                peak[pid] = max(peak.get(pid, 0), mib)
+
+    sampler = threading.Thread(target=sample, name="chip-smoke-smi",
+                               daemon=True)
+    sampler.start()
+    import resource
+    libs = set(_cuda_build.BUILD_DIR.glob("*.so"))
+    cpu0 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    t0 = time.perf_counter()
+    # its own process group: a fleet past its limit is killed with every
+    # node and worker it started
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "stellar_core_tpu_torch", "fleet",
+         "--nodes", str(FLEET_NODES), "--workdir", workdir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        start_new_session=True)
+    try:
+        _out, err = proc.communicate(timeout=FLEET_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"fleet: not done within {FLEET_TIMEOUT_S} s")
+    finally:
+        stop.set()
+        sampler.join(30.0)
+    seconds = time.perf_counter() - t0
+    # the fleet's processes, each reaped by its parent: the command, its
+    # nodes and the rejoin's orchestrator and range workers
+    cpu1 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    cpu_s = (cpu1.ru_utime - cpu0.ru_utime) + (cpu1.ru_stime - cpu0.ru_stime)
+    built = sorted(p.name for p in
+                   set(_cuda_build.BUILD_DIR.glob("*.so")) - libs)
+
+    def read(*path):
+        path = os.path.join(workdir, *path)
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return f.read()
+
+    report = read("fleet-report.json")
+    report = json.loads(report) if report else None
+    trace = read("fleet-trace.json")
+    run = {"rc": proc.returncode, "seconds": seconds, "report": report,
+           "cpu_s": cpu_s, "kernels_built": built,
+           "stderr_tail": err[-3000:],
+           "catchup_log": read(f"node-{FLEET_KILLED}", "catchup.log") or "",
+           "trace_events": json.loads(trace)["traceEvents"] if trace else [],
+           "smi_peak_mib": peak}
+    if report is None:
+        return run
+    # each node's durable header of the archive's tip ledger: the hash it
+    # closed there, where the fleet's /info samples skipped that ledger
+    from stellar_core_tpu_torch.database import Database
+    tip, run["stored_tip_hashes"] = report["archive_tip"], {}
+    for art in report["node_artifacts"]:
+        path = os.path.join(workdir, f"node-{art['index']}", "node.db")
+        if tip is None or not os.path.exists(path):
+            continue
+        db = Database(path)
+        try:
+            row = db.load_header_by_seq(tip)
+        finally:
+            db.close()
+        if row is not None:
+            run["stored_tip_hashes"][str(art["index"])] = row[0].hex()
+    conf = os.path.join(workdir, "replay.cfg")
+    with open(conf, "w") as f:
+        f.write(f'NETWORK_PASSPHRASE = "{FLEET_PASSPHRASE}"\n'
+                f"CHECKPOINT_FREQUENCY = {FLEET_CHECKPOINT_FREQUENCY}\n")
+    t1 = time.perf_counter()
+    replay = subprocess.run(
+        [sys.executable, "-m", "stellar_core_tpu_torch", "catchup", "--conf",
+         conf, "--archive", os.path.join(workdir, "archive"), "--accel",
+         "none"], capture_output=True, text=True, env=_repo_env(),
+        timeout=600)
+    run["replay_s"] = time.perf_counter() - t1
+    got = re.search(r"caught up to ledger (\d+) hash ([0-9a-f]{64})",
+                    replay.stdout)
+    run["replay"] = (int(got.group(1)), got.group(2)) if got \
+        and replay.returncode == 0 else (None, replay.stderr[-2000:])
+    return run
+
+
+def fleet_ranges(catchup_log: str) -> list:
+    """The rejoin's ranges, as its catchup.log's range lines give them."""
+    return [{"index": int(m[0]), "ledgers": int(m[1]), "to": int(m[2]),
+             "ledgers_per_s": float(m[3]), "hit_rate": float(m[4]),
+             "launches": None if m[5] == "none" else json.loads(m[5])}
+            for m in RANGE_LINE.findall(catchup_log)]
+
+
+def fleet_processes(report: dict) -> list:
+    """Every node process the fleet scraped: its node, pid, device, K-G
+    launches and admission batches on the card and on the CPU (the warm
+    batch is a dispatched group of its own, not an admission batch)."""
+    out = []
+    for art in report["node_artifacts"]:
+        for rec in art.get("accel") or [{}]:
+            adm = rec.get("admission") or {}
+            card = max(0, adm.get("dispatch_groups", 0) - 1)
+            out.append({
+                "node": art["index"], "pid": rec.get("pid"),
+                "accel": rec.get("accel"), "devices": rec.get("devices"),
+                "cuda_initialized": rec.get("cuda_initialized"),
+                "K-G": (rec.get("launches") or {}).get("K-G", 0),
+                "warm_dispatched": adm.get("dispatch_groups", 0) >= 1,
+                "warmed": adm.get("warmed"),
+                "batches_card": card,
+                "batches_cpu": adm.get("batches", 0) - card,
+                "sigs_offloaded": adm.get("sigs_offloaded", 0)})
+    return out
+
+
+def fleet_checks(run: dict) -> dict:
+    """Hold a fleet run to its limits; raises AssertionError naming every
+    one it missed.  The command exited 0 (every SLO of its FleetSLOs held,
+    and its divergence check: no two nodes reported different hashes for
+    a ledger); the acceptance test's tighter SLOs and checks
+    (tests/test_fleet.py:221-269) hold on its report; the CPU replay of
+    the archive ends on its tip, on the hash a majority of the nodes
+    stored there, and no node stored another.  No process built a kernel
+    library (chip_smoke.py builds them first).  Every node process opened
+    the card and launched K-G (its warm batch), and every range of the
+    rejoin launched K-G and shipped verdicts from the card.  Returns what
+    it read."""
+    report, bad = run["report"], []
+    if report is None:
+        raise AssertionError(f"fleet: no report (exit {run['rc']}): "
+                             f"{run['stderr_tail']}")
+    if run["rc"] != 0 or not report["passed"]:
+        bad.append(f"exit {run['rc']}, violations {report['violations']}")
+    metrics_ = report["metrics"]
+    traffic = report["traffic"]
+    p99 = report.get("p99_close_s")
+    if p99 is not None and p99 > FLEET_SLOS["max_p99_close_s"]:
+        bad.append(f"close p99 {p99} s")
+    if traffic["shed_rate"] > FLEET_SLOS["max_shed_rate"]:
+        bad.append(f"shed rate {traffic['shed_rate']}")
+    retr = metrics_.get("retracking_s")
+    if retr is None or retr > FLEET_SLOS["max_retracking_s"]:
+        bad.append(f"retracking {retr} s")
+    rolls = metrics_.get("roll_node_s", {})
+    if len(rolls) != FLEET_NODES or any(
+            v > FLEET_SLOS["max_roll_node_s"] for v in rolls.values()):
+        bad.append(f"rolls {rolls}")
+    if traffic["statuses"].get("PENDING", 0) <= 50:
+        bad.append(f"PENDING answers {traffic['statuses']}")
+    if report["divergence_seqs_compared"] < 5:
+        bad.append(f"{report['divergence_seqs_compared']} ledgers compared")
+    if report["archive_tip"] is None or report["archive_tip"] < 15:
+        bad.append(f"archive tip {report['archive_tip']}")
+    log = run["catchup_log"]
+    if "ranges" not in log or "stitches verified" not in log:
+        bad.append(f"catchup.log shows no ranges and stitches: {log[-500:]}")
+    events = run["trace_events"]
+    obs = report["observability"]
+    rows = {e["args"]["name"] for e in events
+            if e.get("ph") == "M" and e.get("name") == "process_name"}
+    phases = {e["name"].split("@")[0] for e in events if e.get("ph") == "i"}
+    scr = obs.get("scraper") or {}
+    if not {f"node-{n}" for n in range(FLEET_NODES)} <= rows \
+            or obs["trace_events"] != len(events) \
+            or not {"close-seal", "externalize"} <= phases \
+            or len(obs["trace_nodes"]) != FLEET_NODES \
+            or set(obs["clock_offsets_s"]) != set(obs["trace_nodes"]):
+        bad.append(f"merged trace: rows {sorted(rows)}, phases "
+                   f"{sorted(phases)}, nodes {obs['trace_nodes']}")
+    curves = (scr.get("curves") or {}).get("close_p99_s") or {}
+    if not scr.get("polls") or not any(len(c) >= 2 for c in curves.values()) \
+            or (scr.get("divergence") or {}).get("close_p99_s") is None \
+            or not scr["slo"]["objectives"]["close-p99"]["evaluations"]:
+        bad.append("the scraper's SLO curves or burn tracker are empty")
+    # the tip ledger's hash as each node stored it
+    tip, by_node = report["archive_tip"], run.get("stored_tip_hashes", {})
+    reported = set(by_node.values())
+    if run.get("replay") is None or run["replay"][0] != tip \
+            or reported != {run["replay"][1]} \
+            or len(by_node) < FLEET_NODES // 2 + 1:
+        bad.append(f"the CPU replay ended on {run.get('replay')}, the nodes "
+                   f"stored {by_node} for the archive's tip {tip}")
+    if run.get("kernels_built"):
+        bad.append(f"fleet processes built kernels: {run['kernels_built']}")
+    procs = fleet_processes(report)
+    ranges = fleet_ranges(log)
+    caught = CAUGHT_UP.search(log)
+    if not ranges or caught is None or int(caught.group(3)) != len(ranges):
+        bad.append(f"the rejoin's ranges are not in its log: {log[-500:]}")
+    for p in procs:
+        if p["accel"] != "cuda" or not p["devices"] \
+                or not all(d.startswith("cuda") for d in p["devices"]) \
+                or not p["cuda_initialized"] or p["K-G"] < 1 \
+                or not p["warm_dispatched"]:
+            bad.append(f"node {p['node']} process {p['pid']} did not "
+                       f"verify its warm batch on the card: {p}")
+    for r in ranges:
+        if not r["launches"] or r["launches"].get("K-G", 0) < 1 \
+                or r["hit_rate"] <= 0:
+            bad.append(f"rejoin range {r['index']} did not verify on "
+                       f"the card: {r}")
+    if bad:
+        raise AssertionError("fleet: " + "; ".join(bad))
+    return {"processes": procs, "ranges": ranges}
+
+
+def fleet_phase() -> dict:
+    """The fleet phase: fleet_run on the card in a temporary directory,
+    held to fleet_checks."""
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    try:
+        run = fleet_run(workdir)
+        try:
+            seen = fleet_checks(run)
+        except AssertionError as e:
+            # what the run gave, for the failure's post-mortem
+            report = run["report"] or {}
+            emit({"phase": "fleet", "failed": str(e)[:4000],
+                  "seconds": run["seconds"], "rc": run["rc"],
+                  **{k: report.get(k) for k in (
+                      "violations", "wall_s", "max_ledger", "p99_close_s",
+                      "traffic", "metrics", "archive_tip")},
+                  "events": report.get("events", [])[-12:],
+                  "ranges": fleet_ranges(run["catchup_log"]),
+                  "stored_tip_hashes": run.get("stored_tip_hashes"),
+                  "replay": run.get("replay")})
+            raise
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    report = run["report"]
+    wall = report["wall_s"]
+    procs = seen["processes"]
+    per_node = {}
+    for p in procs:
+        row = per_node.setdefault(p["node"], {"processes": 0, "K-G": 0,
+                                              "batches_card": 0,
+                                              "batches_cpu": 0})
+        row["processes"] += 1
+        for k in ("K-G", "batches_card", "batches_cpu"):
+            row[k] += p[k]
+    smi = run["smi_peak_mib"]
+    at = {e["event"].split(" (")[0]: e["t_s"] for e in report["events"]}
+    return {"phase": "fleet", "signer": signer_name(),
+            "x25519": x25519_path(), "nodes": FLEET_NODES,
+            "seconds": run["seconds"], "wall_s": wall,
+            "boot_s": (at["all nodes healthy"]
+                       - at.get(f"launched {FLEET_NODES} run processes", 0.0)
+                       if "all nodes healthy" in at else None),
+            "cpu_s": run["cpu_s"], "cpu_cores_busy": run["cpu_s"] / wall,
+            "kernels_built": run["kernels_built"],
+            "max_ledger": report["max_ledger"],
+            "ledgers_per_s": report["max_ledger"] / wall,
+            "archive_tip": report["archive_tip"],
+            "p99_close_s": report["p99_close_s"],
+            "traffic": report["traffic"],
+            "pending": report["traffic"]["statuses"].get("PENDING", 0),
+            "shed": report["traffic"]["statuses"].get("TRY-AGAIN-LATER", 0),
+            "retracking_s": report["metrics"]["retracking_s"],
+            "kill_to_retracking_s":
+                report["metrics"]["kill_to_retracking_s"],
+            "roll_node_s": report["metrics"]["roll_node_s"],
+            "native": {k: v for k, v in report["metrics"].items()
+                       if k.startswith("native_")},
+            "divergence_seqs_compared": report["divergence_seqs_compared"],
+            "per_node": per_node, "processes": procs,
+            "launches_nodes": sum(p["K-G"] for p in procs),
+            "rejoin_ranges": seen["ranges"],
+            "launches_rejoin": sum((r["launches"] or {}).get("K-G", 0)
+                                   for r in seen["ranges"]),
+            "replay": run["replay"], "replay_s": run["replay_s"],
+            "smi_compute_apps_mib": {
+                str(p["pid"]): smi.get(p["pid"]) for p in procs} if smi
+            else "nvidia-smi --query-compute-apps gave no process",
+            "smi_compute_apps_all_mib": smi}
+
+
+# -- the commands: the port's CLI over the node phase's state ---------------
+
+def _cli(argv) -> tuple:
+    """stellar_core_tpu_torch's command line in this process: (exit code,
+    standard output, seconds).  The checkpoint cadence the command's config
+    sets is restored after it."""
+    import contextlib
+    import io
+    from stellar_core_tpu_torch.history.archive import (
+        checkpoint_frequency, set_checkpoint_frequency)
+    from stellar_core_tpu_torch.main import commandline
+    cadence = checkpoint_frequency()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = commandline.main(list(argv))
+    finally:
+        set_checkpoint_frequency(cadence)
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def commands_phase(node_dir: str, node: dict, device=None) -> dict:
+    """The commands phase: the port's command line, in this process, over
+    the state the node phase left in `node_dir` (its DATABASE, buckets and
+    archive) after that node stopped, with its config's ACCEL ("cuda" on the
+    card).  self-check must report ok; offline-info and diag-bucket-stats
+    must name the node's last ledger (and offline-info its hash);
+    dump-ledger --limit 10 must print 10 entries; verify-checkpoints on the
+    node's archive must end on the hash the node phase's CPU replay reached
+    and report-last-history-checkpoint print that archive's HAS; then
+    publish, and new-hist into a second archive, whose HAS must be at the
+    node's last ledger.  Every command must exit 0."""
+    conf = os.path.join(node_dir, "node.toml")
+    archive = os.path.join(node_dir, "archive")
+    last_seq, last_hash = node["last_closed"]
+    replay_seq, replay_hash = node["replayed_to"], node["replay_hash"]
+    runs, bad = {}, []
+
+    def run(name, *argv):
+        """The command's standard output, or None after noting its exit
+        code where it is not 0."""
+        rc, out, secs = _cli(argv)
+        runs[name] = {"rc": rc, "seconds": secs}
+        if rc != 0:
+            bad.append(f"{name} exited {rc}: {out[-500:]}")
+            return None
+        return out
+
+    out = run("self-check", "self-check", "--conf", conf)
+    if out is not None and not json.loads(out).get("ok"):
+        bad.append(f"self-check: {out[-500:]}")
+    out = run("offline-info", "offline-info", "--conf", conf)
+    if out is not None:
+        ledger = json.loads(out)["info"]["ledger"]
+        if (ledger["num"], ledger["hash"]) != (last_seq, last_hash):
+            bad.append(f"offline-info names ledger {ledger}, the node "
+                       f"closed {last_seq} {last_hash} last")
+    out = run("diag-bucket-stats", "diag-bucket-stats", "--conf", conf)
+    if out is not None:
+        stats = json.loads(out)
+        runs["diag-bucket-stats"]["entries"] = stats["totals"]["entries"]
+        if stats["ledger"] != last_seq:
+            bad.append(f"diag-bucket-stats names ledger {stats['ledger']}")
+    out = run("dump-ledger", "dump-ledger", "--conf", conf, "--limit", "10")
+    entries = [json.loads(line) for line in (out or "").splitlines() if line]
+    if out is not None and len(entries) != 10:
+        bad.append(f"dump-ledger printed {len(entries)} entries")
+    out = run("verify-checkpoints", "verify-checkpoints", "--archive",
+              archive, "--conf", conf)
+    got = re.search(r"through checkpoint (\d+); tip hash ([0-9a-f]{64})",
+                    out or "")
+    if out is not None and (got is None or (int(got.group(1)), got.group(2))
+                            != (replay_seq, replay_hash)):
+        bad.append(f"verify-checkpoints: {out.strip()[-300:]}, the CPU "
+                   f"replay reached {replay_seq} {replay_hash}")
+    out = run("report-last-history-checkpoint",
+              "report-last-history-checkpoint", "--archive", archive)
+    if out is not None and json.loads(out)["currentLedger"] != replay_seq:
+        bad.append(f"report-last-history-checkpoint: {out[-300:]}")
+    out = run("publish", "publish", "--conf", conf)
+    runs["publish"]["said"] = (out or "").strip()
+    # new-hist initializes the archives of its config: a second one here,
+    # so that the node's archive keeps what it published
+    second = os.path.join(node_dir, "archive-new-hist")
+    conf2 = os.path.join(node_dir, "node-new-hist.toml")
+    with open(conf) as f:
+        text = f.read()
+    with open(conf2, "w") as f:
+        f.write(text.replace(f'"{archive}"', f'"{second}"'))
+    if run("new-hist", "new-hist", "--conf", conf2) is not None:
+        out = run("report-new-hist", "report-last-history-checkpoint",
+                  "--archive", second)
+        if out is not None and json.loads(out)["currentLedger"] != last_seq:
+            bad.append(f"new-hist's HAS: {out[-300:]}")
+    if bad:
+        raise AssertionError("commands: " + "; ".join(bad))
+    return {"phase": "commands",
+            "accel": "cuda" if device is None else str(device),
+            "last_closed": last_seq, "replayed_to": replay_seq,
+            "dump_ledger_entries": len(entries), "commands": runs,
+            "seconds": sum(r["seconds"] for r in runs.values())}
 
 
 # -- quorum intersection -----------------------------------------------------
@@ -3101,15 +3590,19 @@ def check_quad_kernels(ptxas: dict) -> None:
 
 
 def admission_launches(admitted: dict, consensus: dict, node: dict,
-                       network: dict) -> dict:
+                       network: dict, fleet: dict) -> dict:
     """K-G's launches on each path of the live node (the kernels line's
     admission_launches): the admission phase's two runs, the standalone
-    validator, the node served by `run` and the three validators."""
+    validator, the node served by `run`, the three validators, the
+    fleet's node processes (their warm batches and admission) and its
+    rejoin's range workers."""
     return {"admission_a": admitted["a"]["launches"]["K-G"],
             "admission_b": admitted["b"]["launches"]["K-G"],
             "consensus": consensus["launches"]["K-G"],
             "node": node["launches"]["K-G"],
-            "network": network["launches"]["K-G"]}
+            "network": network["launches"]["K-G"],
+            "fleet_nodes": fleet["launches_nodes"],
+            "fleet_rejoin": fleet["launches_rejoin"]}
 
 
 def smi_line(dev) -> str:
@@ -3423,14 +3916,30 @@ def run(dev) -> int:
     emit(consensus)
 
     # -- a node served by `run`, and three validators over the overlay ----
-    t0 = time.perf_counter()
-    node = node_phase()
-    node.update(seconds=time.perf_counter() - t0, nvidia_smi=smi)
-    emit(node)
-    t0 = time.perf_counter()
-    network = network_phase()
-    network.update(seconds=time.perf_counter() - t0, nvidia_smi=smi)
-    emit(network)
+    # the node's state (database, buckets, archive) stays for the commands
+    node_dir = tempfile.mkdtemp(prefix="chip-smoke-node-")
+    try:
+        t0 = time.perf_counter()
+        node = node_phase(workdir=node_dir)
+        node.update(seconds=time.perf_counter() - t0, nvidia_smi=smi)
+        emit(node)
+        t0 = time.perf_counter()
+        network = network_phase()
+        network.update(seconds=time.perf_counter() - t0, nvidia_smi=smi)
+        emit(network)
+
+        # -- five `run` processes over TCP, a rejoin by parallel catchup --
+        t0 = time.perf_counter()
+        fleet = fleet_phase()
+        fleet.update(phase_s=time.perf_counter() - t0, nvidia_smi=smi)
+        emit(fleet)
+
+        # -- the port's command line over the node phase's state ----------
+        commands = commands_phase(node_dir, node)
+        commands["nvidia_smi"] = smi
+        emit(commands)
+    finally:
+        shutil.rmtree(node_dir, ignore_errors=True)
 
     # -- quorum intersection (bench.py config 5) ----------------------------
     widest, at_65536 = quorum_kernels_vs_plain(dev)
@@ -3472,7 +3981,7 @@ def run(dev) -> int:
     # at admission's batch of 256 signatures
     next(k for k in kernels if k["name"] == "K-G").update({
         "admission_launches": admission_launches(admitted, consensus, node,
-                                                 network),
+                                                 network, fleet),
         "admission_ms": timing["K-G"]["ms_256"],
         "admission_bound_ms": timing["K-G"]["bound_256"][0]})
     print(smi, flush=True)

@@ -19,7 +19,14 @@ The copy of stellar_core_tpu/catchup/catchup.py; what differs is where the
 device work runs: `accel_device` / `accel_devices` (CatchupManager, and
 PreverifyPipeline's `device` / `devices`) name the card or cards, None
 meaning the card (and an error where there is none), "cpu" the plain
-PyTorch versions of the kernels.
+PyTorch versions of the kernels.  One difference in behaviour: under the
+poll profile the collect of the replay's last checkpoint waits for its
+group (PreverifyPipeline._wait_last_group), where the reference never
+waits; no later collect could take those verdicts, and a replay of a
+single checkpoint would otherwise verify all of it on the CPU.  Only
+CatchupManager's replays wait there (they crank a clock of their own); a
+running node's archive catchup (main.application) shares its crank loop
+and does not.
 """
 
 from __future__ import annotations
@@ -635,14 +642,16 @@ class PreverifyPipeline:
             self.stats.get("dispatch_groups", 0) + 1
         _registry().timer("catchup.preverify.dispatch").update(dt)
 
-    def collect(self, checkpoint: int) -> None:
+    def collect(self, checkpoint: int, last: bool = False) -> None:
         """Make `checkpoint`'s verdicts available to the apply (no-op if
         never dispatched or already collected) by seeding the verify
-        cache.  Poll/sig-only profiles NEVER wait: ready groups are
+        cache.  Poll/sig-only profiles do not wait: ready groups are
         harvested on the spot, unripe ones fall back to on-demand CPU
         verification (race-lost accounting) and may still seed later
-        checkpoints when they ripen.  The race profile keeps the
-        earlier bounded wait.  Later checkpoints of an
+        checkpoints when they ripen.  `last` marks the replay's last
+        checkpoint: no later collect could take its group's verdicts, so
+        there a poll collect waits for them (_wait_last_group).  The race
+        profile keeps the earlier bounded wait.  Later checkpoints of an
         already-collected group stay registered in `_groups` so
         dispatched() keeps answering True for them — popping them all at
         first collect made the apply path re-dispatch each one
@@ -651,7 +660,7 @@ class PreverifyPipeline:
         if self.profile == self.PROFILE_RACE:
             self._collect_race(checkpoint)
         else:
-            self._collect_poll(checkpoint)
+            self._collect_poll(checkpoint, last)
 
     def _seed_group(self, group: dict, verdicts) -> None:
         """Push one materialized group's verdicts into the process verify
@@ -740,11 +749,38 @@ class PreverifyPipeline:
             self._harvested_once = True
             self._collects_since_harvest = 0
 
-    def _collect_poll(self, checkpoint: int) -> None:
+    def _wait_last_group(self, group: dict) -> None:
+        """Wait for the group of the replay's last checkpoint.  Without a
+        wait its verdicts would reach no apply (a replay of one
+        checkpoint, such as a fresh range worker's, would verify all of
+        it on the CPU while the card computes the same verdicts).  While
+        the device has not yet answered this pipeline (its context and
+        kernels still loading) the wait may last the wedge timeout, as the
+        race profile's first collect; after that, as long as the CPU would
+        take for the group.  A stale worker generation is not waited
+        for."""
+        import time as _time
+        box, ev, q = group["job"]
+        if ev.is_set() or q is not self._jobs:
+            return
+        budget = (self.COLLECT_TIMEOUT_S if not self._harvested_once
+                  else min(self.COLLECT_TIMEOUT_S,
+                           max(0.25, len(group["pks"])
+                               * self.RACE_CPU_S_PER_SIG * 1.25)))
+        t0 = _time.perf_counter()
+        ev.wait(budget)
+        wait = _time.perf_counter() - t0
+        self.stats["collect_wait_s"] = \
+            self.stats.get("collect_wait_s", 0.0) + wait
+        _registry().timer("catchup.preverify.collect-wait").update(wait)
+
+    def _collect_poll(self, checkpoint: int, last: bool = False) -> None:
         """Never-wait collect: harvest whatever has ripened; a miss for
         THIS checkpoint degrades to on-demand CPU verification (verdicts
         identical — only where they're computed differs) and is metered
-        as a race loss.  The device can only ever ADD throughput."""
+        as a race loss.  The device can only ever ADD throughput.  The
+        one wait is at the replay's `last` checkpoint, whose group no
+        later collect could harvest (_wait_last_group)."""
         import time as _time
         now = _time.perf_counter()
         if self._last_collect_t is not None:
@@ -756,6 +792,9 @@ class PreverifyPipeline:
         self._harvest_ready()
         if group is None or group.get("collected") or group["job"] is None:
             return
+        if last and not group.get("seeded"):
+            self._wait_last_group(group)
+            self._harvest_ready()
         if group.get("seeded"):
             group.setdefault("collected_cps", set()).add(checkpoint)
             return
@@ -1183,6 +1222,9 @@ class CatchupManager:
                            accel_device=self.accel_device,
                            accel_devices=self.accel_devices,
                            checkpoint_hook=checkpoint_hook,
+                           # this replay owns its clock: its last
+                           # collect may wait for the card
+                           wait_last=True,
                            verdict_sink=(bridge.seed_verdicts
                                          if bridge is not None and self.accel
                                          else None),

@@ -361,6 +361,21 @@ def run_range(archive, spec: RangeSpec, network_id: bytes, passphrase: str,
 # stitch proof
 # ---------------------------------------------------------------------------
 
+def range_summary(result: dict) -> str:
+    """One line of a range's stitch record: the ledgers it replayed, its
+    rate, the share of its signatures whose verdicts came from the
+    device pipeline, and the verify kernels it launched (a JSON object;
+    "none" where the range ran without accel).  The orchestrator logs it
+    and the `catchup --parallel` command prints it, so a run's log holds
+    the evidence of where each range verified without --report."""
+    launches = result.get("launches")
+    return (f"range {result['index']}: {result['ledgers_replayed']} "
+            f"ledgers to {result['final_ledger_seq']} "
+            f"({result['ledgers_per_s']} ledgers/s), offload hit rate "
+            f"{result['sig_offload_hit_rate']}, launches "
+            f"{json.dumps(launches, sort_keys=True) if launches else 'none'}")
+
+
 def verify_stitches(results: List[dict],
                     crash_dir: Optional[str] = None) -> int:
     """Prove the seams: range k's final ledger (seq, hash) must equal range
@@ -880,6 +895,8 @@ class ParallelCatchup:
                         target=target, stitches=stitches,
                         steals=len(self._steal_events),
                         wall_s=round(wall, 1))
+        for r in results:
+            log.info("%s", range_summary(r))
         log.info("parallel catchup: %d ledgers over %d ranges in %.1fs "
                  "(%.0f ledgers/s), %d stitches verified, %d steal(s)",
                  total, len(results), wall, self.report["ledgers_per_s"],

@@ -197,7 +197,8 @@ class ApplyCheckpointWork(BasicWork):
     def __init__(self, clock: VirtualClock, mgr,
                  download: GetAndVerifyCheckpointWork, target: int,
                  network_id: bytes,
-                 pipeline: Optional[PreverifyPipeline] = None):
+                 pipeline: Optional[PreverifyPipeline] = None,
+                 wait_last: bool = False):
         super().__init__(clock, f"apply-{download.checkpoint:08x}",
                          max_retries=RETRY_NEVER)
         self.mgr = mgr
@@ -205,6 +206,7 @@ class ApplyCheckpointWork(BasicWork):
         self.target = target
         self.network_id = network_id
         self.pipeline = pipeline
+        self.wait_last = wait_last
         self._idx = 0
         self._preverified = False
         self._native_rejected = False
@@ -333,7 +335,10 @@ class ApplyCheckpointWork(BasicWork):
                     self.pipeline.dispatch({cp: self._checkpoint_frames()},
                                            ledger_state=mgr.root)
             try:
-                self.pipeline.collect(cp)
+                # the target's checkpoint is the replay's last collect
+                self.pipeline.collect(
+                    cp, last=self.wait_last
+                    and cp == checkpoint_containing(self.target))
             except CatchupError as e:
                 # a device job failed on the card: no CPU fallback
                 return self._fail(str(e))
@@ -394,7 +399,13 @@ class CatchupWork(Work):
     additionally PRE-DISPATCHED to the device in checkpoint order —
     coalescing up to 2*`coalesce` checkpoints per device batch once
     `coalesce` are ready, or immediately when the apply cursor is about to
-    need them — so device compute overlaps host apply (SURVEY §5.8)."""
+    need them — so device compute overlaps host apply (SURVEY §5.8).
+
+    `wait_last` lets the collect of the target's checkpoint wait for its
+    device group (PreverifyPipeline.collect's `last`).  Only a replay that
+    owns its clock sets it (CatchupManager: the catchup commands and the
+    range workers); a running node's archive catchup shares the node's
+    crank loop and, as the reference's, never waits."""
 
     def __init__(self, clock: VirtualClock, mgr, archive: FileHistoryArchive,
                  target: int, network_id: bytes, accel: bool = False,
@@ -405,9 +416,10 @@ class CatchupWork(Work):
                  verdict_sink=None, pair_extractor=None,
                  accel_profile: Optional[str] = None,
                  checkpoint_hook=None, accel_device=None,
-                 accel_devices=None):
+                 accel_devices=None, wait_last: bool = False):
         super().__init__(clock, "catchup", max_retries=RETRY_NEVER)
         self.mgr = mgr
+        self.wait_last = wait_last
         self.archive = archive
         self.target = target
         self.network_id = network_id
@@ -560,7 +572,7 @@ class CatchupWork(Work):
                 return State.FAILURE
             self._apply = ApplyCheckpointWork(
                 self.clock, self.mgr, dl, self.target, self.network_id,
-                pipeline=self.pipeline)
+                pipeline=self.pipeline, wait_last=self.wait_last)
             self.add_work(self._apply)
             return State.WAITING
         if not self._apply.done:

@@ -10,7 +10,10 @@ where signatures verify: ``Config.accel()`` decides it for admission,
 the catchup manager and the in-place archive catchup alike — ACCEL
 "cuda" verifies on the card (and refuses to start where CUDA is not
 available), "cpu" on the kernels' plain versions, "none" turns the
-offload off.
+offload off.  Also: a node that starts out of sync past the peers' slot
+memory reaches the archive (the herder's sync-gap hook), /metrics
+carries where this process verifies (``accel_use``), and `run`'s signal
+handler only ends the crank loop (``request_stop``).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from .config import Config
 
 log = slog.get("Main")
 
-VERSION = "stellar-core-tpu 2.0.0"
+VERSION = "stellar-core-tpu-torch 2.0.0"
 
 
 def _herder_bundle(app) -> dict:
@@ -107,11 +110,12 @@ class Application:
         # (on, device) of ACCEL; resolved here, so that a node told to
         # verify on the card fails at start where there is none
         self.accel, self.accel_device = config.accel()
+        self.accel_devices = []
         if self.accel:
             from ..catchup.catchup import (PreverifyPipeline,
                                            resolve_accel_devices)
-            resolve_accel_devices(self.accel_device, None,
-                                  PreverifyPipeline.DEFAULT_DEVICE)
+            self.accel_devices = resolve_accel_devices(
+                self.accel_device, None, PreverifyPipeline.DEFAULT_DEVICE)
         self.network_id = config.network_id()
         self.node_secret = config.node_secret()
         slog.set_level(config.LOG_LEVEL)
@@ -287,6 +291,13 @@ class Application:
         # (reference: HerderImpl out-of-sync recovery → getMoreSCPState);
         # beyond the peers' slot memory, archive catchup takes over
         self.herder.out_of_sync_handler = self._on_out_of_sync
+        # a node that STARTS syncing (a restart, not the tracking ->
+        # syncing edge) learns of a gap past the peers' slot memory only
+        # from its buffered externalized values: the herder's sync-gap
+        # hook hands that to archive catchup too, as a simulated node's
+        # does (the reference's Application leaves the hook unset, so
+        # such a node waits forever)
+        self.herder.sync_gap_hook = self.maybe_start_archive_catchup
         self._catchup_work = None
         self.catchup = CatchupManager(
             self.network_id, config.NETWORK_PASSPHRASE,
@@ -477,6 +488,12 @@ class Application:
 
         self._reconnect_timer.expires_from_now(self.RECONNECT_INTERVAL, tick)
 
+    def request_stop(self) -> None:
+        """End run()'s crank loop after the current crank; the caller
+        stops the node after run() returns (what `run`'s signal handler
+        does, rather than stop() inside the handler)."""
+        self._stopped = True
+
     def run(self) -> None:
         """The main crank loop (reference: ApplicationImpl::run /
         VirtualClock::crank in a loop until shutdown)."""
@@ -603,7 +620,38 @@ class Application:
                 "num": self.lm.last_closed_ledger_seq,
                 "entries": self.lm.root.entry_count(),
             },
+            "accel": self.accel_use(),
         }
+
+    # the admission pipeline's counts a fleet reads per node process
+    ACCEL_ADMISSION_STATS = ("submitted", "batches", "dispatch_groups",
+                             "sigs_offloaded", "sigs_shipped", "sync_path",
+                             "collect_fallbacks", "race_losses")
+
+    def accel_use(self) -> dict:
+        """Where this process verifies signatures, for /metrics: the
+        config's ACCEL, the devices it resolved, whether this process
+        opened a CUDA context, the verify kernels it launched so far, and
+        its admission pipeline's counts (``dispatch_groups`` counts the
+        warm batch; ``warmed`` says its verdicts were taken).  With ACCEL
+        "none" nothing but the setting and the pid."""
+        out = {"pid": os.getpid(), "accel": self.config.ACCEL}
+        if not self.accel:
+            return out
+        import torch
+        from ..accel import ed25519, tables
+        adm = self.herder.admission
+        stats = adm.stats if adm is not None else {}
+        out.update(
+            devices=[str(d) for d in self.accel_devices],
+            cuda_initialized=torch.cuda.is_initialized(),
+            launches={"K-G": ed25519.verify_generic.launches,
+                      "K-B": tables.build_tables_into.launches,
+                      "K-T": tables.verify_tables.launches},
+            admission=None if adm is None else dict(
+                {k: stats.get(k, 0) for k in self.ACCEL_ADMISSION_STATS},
+                warmed=adm._warmed, accel_min_sigs=adm.accel_min_sigs))
+        return out
 
     def submit_tx(self, envelope_xdr: bytes) -> dict:
         """POST /tx backend (reference: CommandHandler::tx).  Malformed

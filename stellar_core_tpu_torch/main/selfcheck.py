@@ -6,6 +6,11 @@ list against it, re-hash every referenced bucket file, and probe archive
 reachability.  All checks are read-only; the result is a pass/fail report
 (the reference logs and returns an exit code — fail-stop is left to the
 caller).
+
+The copy of stellar_core_tpu/main/selfcheck.py, with one repair: a merge
+that finished in memory but is not yet persisted is checked by its
+inputs, which the stored state names, not by its output (the reference
+reports such a node's buckets missing).
 """
 
 from __future__ import annotations
@@ -50,13 +55,26 @@ def self_check(lm, database=None, bucket_dir=None,
 
     # 4. on-disk bucket files re-hash to their names
     if bucket_dir is not None:
-        bad = []
-        for hex_hash in lm.bucket_list.referenced_hashes():
+        def on_disk(hex_hash: str) -> bool:
             if hex_hash == "0" * 64:
-                continue
+                return True
             bucket = bucket_dir.load(hex_hash)   # load() re-hashes
-            if bucket is None or bucket.hash().hex() != hex_hash:
-                bad.append(hex_hash[:16])
+            return bucket is not None and bucket.hash().hex() == hex_hash
+
+        bad = [h[:16] for h in lm.bucket_list.referenced_hashes()
+               if not on_disk(h)]
+        # a merge that finished in memory after the last close (a
+        # reloaded node re-runs the merges its stored state left pending)
+        # has no file until the next close persists it; the stored state
+        # still names its inputs, so those are what must be on disk
+        for lvl in lm.bucket_list.levels:
+            nxt = lvl.next
+            if nxt is None or not nxt.done or nxt.inputs is None:
+                continue
+            out = nxt.resolve().hash().hex()
+            if out[:16] in bad and all(on_disk(b.hash().hex())
+                                       for b in nxt.inputs[:2]):
+                bad.remove(out[:16])
         check("bucket-files", not bad, ",".join(bad))
 
     # 5. archives are reachable and their HAS parses; before the first

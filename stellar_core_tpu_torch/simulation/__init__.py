@@ -1,9 +1,10 @@
 """Simulation layer: in-process multi-node networks + load generation.
 
 Reference: src/simulation/ (SURVEY.md §2.1).  The copy of
-stellar_core_tpu/simulation/, so far its LoadGenerator and its in-process
-networks (simulation.simulation); the chaos campaigns and the fleet are
-not ported yet.
+stellar_core_tpu/simulation/: its LoadGenerator, its in-process networks
+(simulation.simulation), the chaos campaigns on them (simulation.chaos),
+ApplyLoad (simulation.apply_load) and the multi-process TCP fleet
+(simulation.fleet); simulation.hashseed_diff is not ported yet.
 """
 
 from .loadgen import LoadGenerator

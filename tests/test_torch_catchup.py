@@ -126,11 +126,18 @@ def race_in_both(monkeypatch):
     COLLECT_TIMEOUT_S, at which a miss is not counted as a race: a finite
     one (10 s a signature gave a group of one or two pairs 12.5-25 s) is
     missed on a loaded machine by a group whose job builds its key tables
-    or compiles, on one side only."""
+    or compiles, on one side only.  That timeout, 180 s, is itself within
+    reach: the reference's first K-B+K-T group with the native engine
+    (its table programs compiling on jax's CPU) takes about 130 s on an
+    idle eight-core machine and 180-190 s beside a six-worker test run,
+    where its first collect then times out and its hit rate is 0; so it
+    is raised here for both packages, and a collect still waits for its
+    group rather than for a clock."""
     for mod in (ref_catchup, port_catchup):
         pipe = mod.PreverifyPipeline
         monkeypatch.setattr(pipe, "DEFAULT_PROFILE", pipe.PROFILE_RACE)
         monkeypatch.setattr(pipe, "RACE_CPU_S_PER_SIG", float("inf"))
+        monkeypatch.setattr(pipe, "COLLECT_TIMEOUT_S", 1800.0)
 
 
 def catchup(root, archive_dir, how="complete", **kw):
@@ -499,3 +506,119 @@ def test_two_threads_share_a_verifier_with_evictions():
     # a batch's keys beyond the four slots stay on the generic path
     assert stats["table_sigs"] + stats["generic_sigs"] == 8 * 12
     assert stats["table_sigs"] > stats["generic_sigs"] > 0
+
+
+def _parked_group(pipe, release, cps):
+    """A dispatched group of two pairs over checkpoints `cps` whose device
+    job finishes when `release` is set."""
+    def job():
+        release.wait(30.0)
+        return np.ones(2, dtype=bool), 0.01
+
+    group = {"job": pipe._submit(job),
+             "pks": [bytes([0xA1 + i]) * 32 for i in range(2)],
+             "sigs": [bytes([0xB1 + i]) * 64 for i in range(2)],
+             "msgs": [b"last-group %d" % i for i in range(2)],
+             "checkpoints": list(cps),
+             "pairs_by_cp": {cp: 2 for cp in cps}, "collected_cps": set()}
+    for cp in cps:
+        pipe._groups[cp] = group
+    pipe._live_groups.append(group)
+    return group
+
+
+def test_poll_waits_for_the_group_of_the_last_checkpoint():
+    """Under poll a collect does not wait for its group, save the collect
+    of the replay's last checkpoint: no later collect could take that
+    group's verdicts.  Until the device has answered once (a cold start)
+    that wait may take the wedge timeout; after, the group's CPU cost (at
+    least 0.25 s).  The reference's poll collect has no such case."""
+    import time
+    pipe = port_catchup.PreverifyPipeline(NID, 256, device="cpu")
+    assert pipe.profile == pipe.PROFILE_POLL
+    try:
+        cold = threading.Event()
+        _parked_group(pipe, cold, (63,))
+        threading.Timer(0.5, cold.set).start()
+        t0 = time.perf_counter()
+        pipe.collect(63, last=True)            # cold: waits past 0.25 s
+        assert time.perf_counter() - t0 >= 0.45
+        assert pipe.stats["sigs_shipped"] == 2
+        assert not pipe.stats.get("sigs_race_lost")
+        parked = threading.Event()
+        _parked_group(pipe, parked, (127,))
+        t0 = time.perf_counter()
+        pipe.collect(127)                      # not the last: no wait
+        assert time.perf_counter() - t0 < 0.2
+        assert pipe.stats["sigs_race_lost"] == 2
+        parked.set()
+        warm = threading.Event()
+        _parked_group(pipe, warm, (191,))
+        threading.Timer(0.1, warm.set).start()
+        # warm: the wait is the group's CPU cost, here made long enough
+        # that a loaded machine's late timer still falls inside it
+        pipe.RACE_CPU_S_PER_SIG = 10.0
+        pipe.collect(191, last=True)
+        assert pipe.stats["sigs_race_lost"] == 2
+        assert pipe.stats["sigs_shipped"] == 6
+        assert pipe.stats["sigs_late_seeded"] == 2   # 127's, ripened late
+        assert pipe.stats["collect_wait_s"] >= 0.55
+    finally:
+        pipe.close()
+        port_keys.clear_verify_cache()
+    assert "last" not in ref_catchup.PreverifyPipeline.collect.__code__ \
+        .co_varnames
+
+
+def test_a_one_checkpoint_replay_takes_its_verdicts_from_the_device(
+        published):
+    """A catchup to the first checkpoint has one group and one collect:
+    under poll its verdicts come from the device (here the plain
+    versions), not the CPU, and the hash is the reference's."""
+    path, _, _ = published
+    mgr, cm = catchup("port", path, to_ledger=63, accel=True,
+                      accel_device="cpu", accel_chunk=256)
+    want, _ = catchup("ref", path, to_ledger=63)
+    assert state_of(mgr) == state_of(want)
+    assert cm.accel_profile in (None, "poll")
+    assert cm.offload_hit_rate() > 0.5, cm.stats
+
+
+@pytest.mark.parametrize("owns_its_clock", [True, False],
+                         ids=["catchup-manager", "node-crank-loop"])
+def test_only_a_replay_on_its_own_clock_waits_at_its_last_collect(
+        published, monkeypatch, owns_its_clock):
+    """CatchupManager's replay (a catchup command, a range worker) marks
+    its last collect, which may then wait for the card.  A CatchupWork
+    built as a running node's archive catchup builds it
+    (Application.maybe_start_archive_catchup) shares the node's crank
+    loop and never marks one, as the reference never waits."""
+    from stellar_core_tpu_torch.historywork.works import CatchupWork
+    from stellar_core_tpu_torch.ledger.manager import LedgerManager
+    from stellar_core_tpu_torch.util.clock import ClockMode, VirtualClock
+    path, _, _ = published
+    seen = []
+    real = port_catchup.PreverifyPipeline.collect
+
+    def collect(self, checkpoint, last=False):
+        seen.append((checkpoint, last))
+        return real(self, checkpoint, last)
+
+    monkeypatch.setattr(port_catchup.PreverifyPipeline, "collect", collect)
+    if owns_its_clock:
+        mgr, _ = catchup("port", path, to_ledger=127, accel=True,
+                         accel_device="cpu", accel_chunk=256)
+    else:
+        port_keys.clear_verify_cache()
+        mgr = LedgerManager(NID)
+        mgr.start_new_ledger()
+        clock = VirtualClock(ClockMode.VIRTUAL_TIME)
+        work = CatchupWork(clock, mgr, PortArchive(path), 127, NID,
+                           accel=True, accel_device="cpu", accel_chunk=256,
+                           stats={})
+        work.start()
+        assert clock.crank_until(lambda: work.done, timeout=600)
+        assert work.succeeded
+    want, _ = catchup("ref", path, to_ledger=127)
+    assert state_of(mgr) == state_of(want)
+    assert sorted(seen) == [(63, False), (127, owns_its_clock)]

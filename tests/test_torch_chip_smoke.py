@@ -913,6 +913,171 @@ def test_the_kernels_line_carries_the_live_node_launches():
         return {"launches": {"K-G": n}}
 
     got = chip_smoke.admission_launches(
-        {"a": phase(1), "b": phase(2)}, phase(3), phase(4), phase(5))
+        {"a": phase(1), "b": phase(2)}, phase(3), phase(4), phase(5),
+        {"launches_nodes": 6, "launches_rejoin": 7})
     assert got == {"admission_a": 1, "admission_b": 2, "consensus": 3,
-                   "node": 4, "network": 5}
+                   "node": 4, "network": 5, "fleet_nodes": 6,
+                   "fleet_rejoin": 7}
+
+
+# -- the fleet and the commands ------------------------------------------------
+
+TIP_SEQ = 23
+
+
+def _ledger_hash(seq: int) -> str:
+    return f"{seq:064x}"
+
+
+def _canned_run(tmp_path, diverge_at=None):
+    """A fleet run that passes fleet_checks on the card: the report of a
+    provisioned five-node Fleet's finalize() (no process started), filled
+    with what a good run's samples, scrapes and trace give, a rejoin log
+    of one range on K-G, each node's stored tip and a CPU replay on its
+    hash.  With `diverge_at`, node 4's sample of that ledger is another
+    hash."""
+    from stellar_core_tpu_torch.simulation.fleet import Fleet
+    fleet = Fleet(str(tmp_path), n_nodes=5)
+    fleet.provision()
+    os.makedirs(os.path.join(fleet.archive_dir, ".well-known"))
+    with open(os.path.join(fleet.archive_dir, ".well-known",
+                           "stellar-history.json"), "w") as f:
+        json.dump({"currentLedger": TIP_SEQ}, f)
+    fleet.hash_by_seq = {seq: {n: _ledger_hash(seq) for n in range(5)}
+                         for seq in range(2, 30)}
+    if diverge_at is not None:
+        fleet.hash_by_seq[diverge_at][4] = "ff" * 32
+    fleet.metrics.update(retracking_s=12.5, kill_to_retracking_s=21.0,
+                         roll_node_s={str(n): 6.0 for n in range(5)})
+    fleet.client.offered = 400
+    fleet.client.statuses = {"PENDING": 380, "TRY-AGAIN-LATER": 20}
+    for node in fleet.nodes:
+        node.note_accel({"accel": {
+            "pid": 1000 + node.index, "accel": "cuda",
+            "devices": ["cuda:0"], "cuda_initialized": True,
+            "launches": {"K-G": 1, "K-B": 0, "K-T": 0},
+            "admission": {"batches": 40, "dispatch_groups": 1,
+                          "sigs_offloaded": 0, "warmed": True}}})
+    report = fleet.finalize()
+    nodes = [f"node-{n}" for n in range(5)]
+    events = [{"ph": "M", "name": "process_name", "args": {"name": n}}
+              for n in nodes]
+    events += [{"ph": "i", "name": f"{phase}@5"}
+               for phase in ("externalize", "close-seal")]
+    report["observability"].update(
+        trace_events=len(events), trace_nodes=nodes,
+        clock_offsets_s={n: 0.0 for n in nodes},
+        scraper={"polls": 40,
+                 "curves": {"close_p99_s": {"node-0": [[1.0, 0.2],
+                                                       [2.0, 0.2]]}},
+                 "divergence": {"close_p99_s": 0.0},
+                 "slo": {"objectives": {"close-p99": {"evaluations": 9}}}})
+    log = ("caught up to ledger 7 hash " + _ledger_hash(7)
+           + " (1 ranges, 0 stitches verified, 14.2 ledgers/s)\n"
+           'range 0: 6 ledgers to 7 (30.5 ledgers/s), offload hit rate 1.0, '
+           'launches {"K-B": 0, "K-G": 1, "K-T": 0}\n'
+           "state persisted to node.db\n")
+    return {"rc": 0, "report": report, "catchup_log": log,
+            "trace_events": events, "stderr_tail": "", "kernels_built": [],
+            "stored_tip_hashes": {str(n): _ledger_hash(TIP_SEQ)
+                                  for n in range(5)},
+            "replay": (TIP_SEQ, _ledger_hash(TIP_SEQ))}
+
+
+@pytest.fixture
+def canned_fleet(tmp_path):
+    return _canned_run(tmp_path)
+
+
+def test_fleet_checks_pass_a_good_run(canned_fleet):
+    seen = chip_smoke.fleet_checks(canned_fleet)
+    assert [r["launches"]["K-G"] for r in seen["ranges"]] == [1]
+    assert [(p["node"], p["K-G"], p["batches_card"], p["batches_cpu"])
+            for p in seen["processes"]] == [(n, 1, 0, 40) for n in range(5)]
+
+
+def _no_kg_range(run):
+    run["catchup_log"] = run["catchup_log"].replace('"K-G": 1', '"K-G": 0')
+
+
+def _warm_batch_on_the_cpu(run):
+    rec = run["report"]["node_artifacts"][3]["accel"][0]
+    rec.update(devices=["cpu"], cuda_initialized=False,
+               launches={"K-G": 0, "K-B": 0, "K-T": 0})
+
+
+def _replay_off_the_hash(run):
+    run["replay"] = (TIP_SEQ, "00" * 32)
+
+
+def _a_node_built_a_kernel(run):
+    run["kernels_built"] = ["verify_generic-0123abcd.so"]
+
+
+def _a_node_stored_another_tip(run):
+    run["stored_tip_hashes"]["1"] = "ee" * 32
+
+
+def _no_majority_holds_the_tip(run):
+    run["stored_tip_hashes"] = {"0": _ledger_hash(TIP_SEQ),
+                                "1": _ledger_hash(TIP_SEQ)}
+
+
+@pytest.mark.parametrize("spoil, match", [
+    (_no_kg_range, "rejoin range 0 did not verify on the card"),
+    (_warm_batch_on_the_cpu,
+     "node 3 process 1003 did not verify its warm batch on the card"),
+    (_replay_off_the_hash, "the CPU replay ended on"),
+    (_a_node_built_a_kernel, "fleet processes built kernels"),
+    (_a_node_stored_another_tip, "the CPU replay ended on"),
+    (_no_majority_holds_the_tip, "the CPU replay ended on"),
+], ids=["range-without-K-G", "warm-batch-off-the-card",
+        "replay-off-the-fleets-hash", "a-process-built-a-kernel",
+        "a-node-stored-another-tip",
+        "no-majority-reported-the-tip"])
+def test_fleet_checks_fail_a_spoiled_run(canned_fleet, spoil, match):
+    spoil(canned_fleet)
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.fleet_checks(canned_fleet)
+
+
+def test_fleet_checks_fail_a_hash_divergence(tmp_path):
+    """Two nodes that reported two hashes for one ledger fail the fleet's
+    own divergence check, its report, and so the phase."""
+    run = _canned_run(tmp_path, diverge_at=10)
+    assert not run["report"]["passed"]
+    with pytest.raises(AssertionError, match="HASH DIVERGENCE at ledger 10"):
+        chip_smoke.fleet_checks(run)
+
+
+def test_fleet_ranges_read_the_printed_lines_only():
+    """The orchestrator's log record of a range (timestamped) is not read
+    twice; a range without accel has no launches."""
+    log = ("2026-01-01 00:00:00,000 [stellar.History INFO] range 0: 6 "
+           "ledgers to 7 (1.0 ledgers/s), offload hit rate 0.0, launches "
+           "none\nrange 0: 6 ledgers to 7 (1.0 ledgers/s), offload hit "
+           "rate 0.0, launches none\n")
+    assert chip_smoke.fleet_ranges(log) == [
+        {"index": 0, "ledgers": 6, "to": 7, "ledgers_per_s": 1.0,
+         "hit_rate": 0.0, "launches": None}]
+
+
+def test_commands_phase_on_the_cpu(plain_admission, tmp_path):
+    """The port's command line over a small node's state: every command
+    exits 0 and names the node's last ledger and its archive's replay."""
+    node = chip_smoke.node_phase(device="cpu", workdir=str(tmp_path),
+                                 **NODE_SMALL)
+    rep = chip_smoke.commands_phase(str(tmp_path), node, device="cpu")
+    assert rep["last_closed"] == node["last_closed"][0]
+    assert rep["replayed_to"] == node["replayed_to"]
+    assert rep["dump_ledger_entries"] == 10
+    assert all(r["rc"] == 0 for r in rep["commands"].values())
+    assert set(rep["commands"]) >= {
+        "self-check", "offline-info", "diag-bucket-stats", "dump-ledger",
+        "verify-checkpoints", "report-last-history-checkpoint", "publish",
+        "new-hist"}
+    # the node's state is the commands': another last ledger fails them
+    with pytest.raises(AssertionError, match="offline-info names ledger"):
+        chip_smoke.commands_phase(
+            str(tmp_path), {**node, "last_closed": (1, "00" * 32)},
+            device="cpu")

@@ -77,6 +77,12 @@ NODE = {f"stellar_core_tpu_torch.{m}" for m in (
                             "http_admin", "application")),
     "simulation.simulation")}
 
+# the fleet, the chaos campaigns, the fuzzers, apply-load and the
+# helpers of the remaining subcommands
+FLEET = {f"stellar_core_tpu_torch.{m}" for m in (
+    "fuzz", "simulation.fleet", "simulation.chaos", "simulation.apply_load",
+    "util.fleettrace", "util.fs")}
+
 FOUNDATIONS = {f"stellar_core_tpu_torch.{m}" for m in (
     "_native_build", "transactions.signature_checker",
     *(f"util.{u}" for u in ("scheduler", "clock", "lockorder", "cache",
@@ -93,7 +99,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "stellar_core_tpu_torch.crypto.rfc8032",
             "stellar_core_tpu_torch.xdr", "stellar_core_tpu_torch.util",
             "stellar_core_tpu_torch.transactions"} | FOUNDATIONS \
-        | STATE_AND_APPLY | CATCHUP | LIVE_NODE | NODE <= set(PORT_MODULES)
+        | STATE_AND_APPLY | CATCHUP | LIVE_NODE | NODE | FLEET \
+        <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES + ['chip_smoke']!r}:\n"
@@ -283,7 +290,10 @@ def test_the_resolve_walk_sees_relative_and_lazy_imports():
         ("stellar_core_tpu_torch.herder.tx_queue", ("TransactionQueue",)),
         ("stellar_core_tpu_torch", ("work",)),
         ("stellar_core_tpu_torch.historywork.works", ())]
-    assert _module_file("stellar_core_tpu_torch.simulation.chaos") is None
+    assert _module_file("stellar_core_tpu_torch.simulation.hashseed_diff") \
+        is None
+    assert _module_file("stellar_core_tpu_torch.lint") is None
+    assert _module_file("stellar_core_tpu_torch.simulation.chaos") is not None
     assert _module_file("stellar_core_tpu_torch.overlay.peer") is not None
     assert _module_file("stellar_core_tpu_torch.herder.tx_queue") is not None
     assert _module_file("stellar_core_tpu_torch.catchup.catchup") is not None

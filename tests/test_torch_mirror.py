@@ -11,11 +11,12 @@ the error it raised) and the test's own outcome; ``assert_mirrored``
 holds the two roots' records equal, byte for byte.
 
 ``cases`` lists a file's tests that the port can run: a test whose body
-names a module the port does not have yet (the chaos campaigns, the
-fleet, the fuzzers, lint) is left out, as is one marked slow (the tier-1
+names a module the port does not have yet (lint, the hash-seed
+differential) is left out, as is one marked slow (the tier-1
 run deselects those).  Fixtures are the file's own, called as plain functions
 (a module-scoped one anew for each case); ``tmp_path``,
-``tmp_path_factory`` and ``monkeypatch`` are made here.  As under pytest,
+``tmp_path_factory``, ``monkeypatch``, ``capsys`` and ``caplog`` are
+made here.  As under pytest,
 the file's autouse fixtures (its own and its class's) come first, then a
 class's ``setup_method``; ``teardown_method`` runs after the case, and a
 fixture argument with a default keeps it.
@@ -29,7 +30,9 @@ import ast
 import contextlib
 import importlib
 import inspect
+import io
 import itertools
+import logging
 import re
 import sys
 import tempfile
@@ -232,6 +235,65 @@ class _TmpPathFactory:
         return path
 
 
+class _CapSys:
+    """pytest's capsys, reduced to readouterr: what the case writes to
+    sys.stdout and sys.stderr from the moment it asks for it until
+    close()."""
+
+    def __init__(self):
+        self._saved = sys.stdout, sys.stderr
+        self._out, self._err = io.StringIO(), io.StringIO()
+        sys.stdout, sys.stderr = self._out, self._err
+
+    def readouterr(self):
+        got = types.SimpleNamespace(out=self._out.getvalue(),
+                                    err=self._err.getvalue())
+        for buf in (self._out, self._err):
+            buf.seek(0)
+            buf.truncate()
+        return got
+
+    def close(self) -> None:
+        sys.stdout, sys.stderr = self._saved
+
+
+class _CapLog(logging.Handler):
+    """pytest's caplog, reduced to records, text and at_level: the log
+    records that reach the root logger from the moment the case asks for
+    it until close()."""
+
+    def __init__(self):
+        super().__init__(logging.NOTSET)
+        self.records = []
+        logging.getLogger().addHandler(self)
+
+    def emit(self, record) -> None:
+        self.records.append(record)
+
+    @property
+    def text(self) -> str:
+        return "\n".join(r.getMessage() for r in self.records)
+
+    @contextlib.contextmanager
+    def at_level(self, level, logger=None):
+        target = logging.getLogger(logger)
+        saved = target.level, self.level
+        target.setLevel(level)
+        self.setLevel(level)
+        try:
+            yield
+        finally:
+            target.setLevel(saved[0])
+            self.setLevel(saved[1])
+
+    def close(self) -> None:
+        logging.getLogger().removeHandler(self)
+        super().close()
+
+
+_CAPTURES = {"capsys": _CapSys, "caplog": _CapLog}
+
+
 def _xunit(owner, name: str, fn) -> None:
     """owner.name(fn) or owner.name(), where the class defines it."""
     method = getattr(owner, name, None)
@@ -260,6 +322,8 @@ def run_case(filename: str, case: str, root: str) -> dict:
             def resolve(name):
                 if name in params:
                     return params[name]
+                if name in _CAPTURES and name not in made:
+                    made[name] = _CAPTURES[name]()
                 if name not in made:
                     fixture = getattr(owner, name, None) or getattr(mod, name)
                     args = [resolve(p) for p, v in
@@ -286,6 +350,9 @@ def run_case(filename: str, case: str, root: str) -> dict:
                     _xunit(owner, "teardown_method", fn)
 
             outcomes.append(_outcome(call))
+            for name in _CAPTURES:
+                if name in made:
+                    made[name].close()
             for gen in reversed(teardown):
                 with contextlib.suppress(StopIteration):
                     next(gen)
@@ -328,14 +395,18 @@ def test_cases_leave_out_what_the_port_lacks():
     # the overlay and the application, ported now
     assert ported(".overlay") and ported(".overlay.peer")
     assert ported(".main.application") and ported(".simulation.simulation")
-    assert not ported(".simulation.chaos") and not ported(".fuzz")
-    assert not ported(".lint") and not ported(".simulation.fleet")
+    # the chaos campaigns, the fuzzers and the fleet, ported now; lint and
+    # hashseed_diff not yet
+    assert ported(".simulation.chaos") and ported(".fuzz")
+    assert ported(".simulation.fleet") and ported(".util.fleettrace")
+    assert not ported(".lint") and not ported(".simulation.hashseed_diff")
     assert unported("from stellar_core_tpu.overlay.peer import Peer\n"
                     "from stellar_core_tpu import scp, overlay, fuzz, xdr\n"
                     "from stellar_core_tpu.simulation.chaos import C\n"
+                    "import stellar_core_tpu.simulation.hashseed_diff\n"
                     "import stellar_core_tpu.simulation.simulation\n"
                     "import stellar_core_tpu.lint.rules\n") \
-        == [".fuzz", ".lint.rules", ".simulation.chaos"]
+        == [".lint.rules", ".simulation.hashseed_diff"]
     names = cases("test_tx_apply.py")
     assert "test_fee_bump" in names
     # imports catchup and history.manager in its body, both ported now
@@ -366,3 +437,25 @@ def test_a_different_close_is_caught(monkeypatch):
     monkeypatch.setattr(frame.TransactionFrame, "apply", apply)
     with pytest.raises(AssertionError, match="close 0 of"):
         assert_mirrored("test_tx_apply.py", "test_create_account_and_payment")
+
+
+def test_capsys_and_caplog_capture_what_the_case_writes():
+    out = _CapSys()
+    try:
+        print("to stdout")
+        print("to stderr", file=sys.stderr)
+        got = out.readouterr()
+        assert (got.out, got.err) == ("to stdout\n", "to stderr\n")
+        assert out.readouterr().out == ""
+    finally:
+        out.close()
+    log = _CapLog()
+    try:
+        with log.at_level(logging.WARNING, logger="mirror.test"):
+            logging.getLogger("mirror.test").info("dropped")
+            logging.getLogger("mirror.test").warning("kept")
+        assert [r.getMessage() for r in log.records] == ["kept"]
+        assert log.text == "kept"
+    finally:
+        log.close()
+    assert log not in logging.getLogger().handlers

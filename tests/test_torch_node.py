@@ -292,3 +292,133 @@ def test_a_port_node_handshakes_with_a_reference_node():
     assert pa.is_authenticated() and pb.is_authenticated()
     assert pa.peer_id == pks[1] and pb.peer_id == pks[0]
     assert oa.num_authenticated() == ob.num_authenticated() == 1
+
+
+def _syncing_node(tmp_path, pkg: str):
+    """A node of `pkg` (either package) that starts out of sync at genesis
+    beside an archive published to ledger 63 by the same package: the
+    tip ledger and hash, and the node's Application on a virtual clock."""
+    import importlib
+    mod = lambda name: importlib.import_module(f"{pkg}.{name}")  # noqa: E731
+    nid = mod("testutils").network_id("sync gap net")
+    src = mod("ledger.manager").LedgerManager(nid)
+    src.start_new_ledger()
+    arch = str(tmp_path / f"{pkg}-arch")
+    hist = mod("history.manager").HistoryManager(
+        src, "sync gap net", [mod("history.archive").FileHistoryArchive(arch)])
+    gen = mod("simulation.loadgen").LoadGenerator(src, hist, seed=31)
+    gen.create_accounts(8, per_ledger=8)
+    gen.payment_ledgers(20, txs_per_ledger=2)
+    gen.run_to_checkpoint_boundary()
+    cfg = mod("main.config").Config.from_dict({
+        "NETWORK_PASSPHRASE": "sync gap net", "PEER_PORT": 0,
+        "ACCEL": "none", "HISTORY": {"main": {"get": arch}}})
+    clock_mod = mod("util.clock")
+    clock = clock_mod.VirtualClock(clock_mod.ClockMode.VIRTUAL_TIME)
+    app = mod("main.application").Application(cfg, clock=clock,
+                                              listen=False)
+    app.start()
+    return (src.last_closed_ledger_seq, src.lcl_hash), app, clock
+
+
+def test_a_node_that_starts_past_the_slot_memory_reaches_the_archive(
+        tmp_path):
+    """A node that starts syncing (a restart) and then sees externalized
+    values past the peers' slot memory catches up from the archive: the
+    herder's sync-gap hook reaches the Application's archive catchup.
+    The reference leaves the hook unset, and its node stays where it
+    started."""
+    (tip, tip_hash), app, clock = _syncing_node(tmp_path,
+                                                "stellar_core_tpu_torch")
+    try:
+        assert app.herder.state == "syncing"
+        assert app.lm.last_closed_ledger_seq == 1 and tip == 63
+        app.herder._buffered[tip + 3] = object()   # the network, far ahead
+        app.herder._drain_buffered()
+        assert app._catchup_work is not None
+        assert clock.crank_until(
+            lambda: app.lm.last_closed_ledger_seq >= tip, timeout=600)
+        assert app.lm.lcl_hash == tip_hash
+    finally:
+        app.stop()
+    _, ref_app, _ = _syncing_node(tmp_path, "stellar_core_tpu")
+    try:
+        ref_app.herder._buffered[tip + 3] = object()
+        ref_app.herder._drain_buffered()
+        assert ref_app._catchup_work is None
+        assert ref_app.lm.last_closed_ledger_seq == 1
+    finally:
+        ref_app.stop()
+
+
+def test_runs_signal_handler_only_ends_the_crank_loop(tmp_path,
+                                                      monkeypatch):
+    """SIGTERM to `run` (on the main thread) ends the crank loop; the
+    node is stopped after run() returns, not inside the handler, which
+    would tear the node down in the middle of whatever the main thread
+    was doing."""
+    import threading
+    from stellar_core_tpu_torch.main import application, commandline
+    events = []
+    real_stop, real_run = application.Application.stop, \
+        application.Application.run
+
+    def stop(self):
+        events.append(("stop", self._stopped))
+        real_stop(self)
+
+    def run(self):
+        real_run(self)
+        events.append(("run returned", self._stopped))
+
+    monkeypatch.setattr(application.Application, "stop", stop)
+    monkeypatch.setattr(application.Application, "run", run)
+    conf = tmp_path / "n.cfg"
+    conf.write_text('RUN_STANDALONE = true\nPEER_PORT = 0\nACCEL = "none"\n'
+                    f"HTTP_PORT = {_free_port()}\n")
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT,
+                                                  signal.SIGTERM)}
+    timer = threading.Timer(1.5, os.kill, (os.getpid(), signal.SIGTERM))
+    timer.start()
+    try:
+        assert commandline.main(["run", "--conf", str(conf)]) == 0
+    finally:
+        timer.cancel()
+        for s, h in handlers.items():
+            signal.signal(s, h)
+    assert events == [("run returned", True), ("stop", True)]
+
+
+@pytest.mark.parametrize("pkg, ok", [("stellar_core_tpu_torch", True),
+                                     ("stellar_core_tpu", False)],
+                         ids=["port", "reference"])
+def test_self_check_reads_an_unpersisted_merge_by_its_inputs(tmp_path,
+                                                             pkg, ok):
+    """A merge that finished in memory after the last close (a reloaded
+    node re-runs the merges its stored state left pending) has no file
+    yet; its inputs do, and they are what restart needs.  The port's
+    self-check holds them; the reference's reports the output missing."""
+    import importlib
+    mod = lambda name: importlib.import_module(f"{pkg}.{name}")  # noqa: E731
+    lm = mod("ledger.manager").LedgerManager(
+        mod("testutils").network_id("self check net"))
+    lm.start_new_ledger()
+    gen = mod("simulation.loadgen").LoadGenerator(lm, seed=5)
+    gen.create_accounts(8, per_ledger=4)
+    gen.payment_ledgers(4, txs_per_ledger=2)
+    bdir = mod("bucket.manager").BucketDir(str(tmp_path / "buckets"))
+    level = next(lvl for lvl in lm.bucket_list.levels
+                 if not lvl.curr.is_empty() and not lvl.snap.is_empty())
+    for lvl in lm.bucket_list.levels:
+        bdir.save(lvl.curr)
+        bdir.save(lvl.snap)
+        if lvl.next is not None:
+            bdir.save(lvl.next.resolve())
+    # finished in memory, never saved: the output of merging the level
+    level.next = mod("bucket.future").FutureBucket(
+        level.curr, level.snap, True, lm.lcl_header.ledgerVersion)
+    assert level.next.done
+    report = mod("main.selfcheck").self_check(lm, bucket_dir=bdir)
+    got = {c["name"]: c["ok"] for c in report["checks"]}
+    assert got == {"lcl-header-hash": True, "bucket-list-hash": True,
+                   "bucket-files": ok}

@@ -17,13 +17,13 @@ they are taken on the wall clock, without their hashes (WALL_CLOCK: three
 nodes over TCP on a REAL_TIME clock, whose close times are the seconds
 the run took).
 
-Left out by name, so that no case is left out silently:
-AWAITING_COMMANDS, the cases of subcommands the port does not have yet
-(version, gen-seed, diag-bucket-stats, health and the like); REFUSED,
-a config that asks for ACCEL = "tpu", which the port refuses (held apart
-below).  test_main.py's three-process network is marked slow and stays
-out of tier 1, as it does for the reference; TestFuzzers names the
-fuzzers, which the port does not have yet, and cases() leaves it out.
+Left out by name, so that no case is left out silently: REFUSED, a
+config that asks for ACCEL = "tpu", which the port refuses (held apart
+below).  AWAITING_COMMANDS is empty: every subcommand of the reference
+is ported, and COMMAND_CASES, the cases that waited for them and
+TestFuzzers' (which waited for fuzz.py), all run.  test_main.py's
+three-process network is marked slow and stays out of tier 1, as it does
+for the reference.
 """
 
 from __future__ import annotations
@@ -35,7 +35,10 @@ from test_torch_mirror import PORT, REF, assert_mirrored, cases, run_case
 
 FILES = ("test_overlay.py", "test_herder_simulation.py", "test_anomaly.py",
          "test_slo.py", "test_sampleprof.py", "test_main.py")
-AWAITING_COMMANDS = {
+# the cases of the 24 subcommands that waited for their port: none now
+AWAITING_COMMANDS = set()
+# the cases that waited for them, and TestFuzzers (which waited for fuzz.py)
+COMMAND_CASES = {
     ("test_main.py", "TestCli.test_version"),
     ("test_main.py", "TestCli.test_gen_seed_and_sec_to_pub"),
     ("test_main.py", "TestCli.test_diag_bucket_stats"),
@@ -49,6 +52,9 @@ AWAITING_COMMANDS = {
      "TestHealthProbePolling.test_unreachable_without_retries_exits_1"),
     ("test_main.py",
      "TestHealthProbePolling.test_retries_poll_until_the_endpoint_comes_up"),
+    ("test_main.py", "TestFuzzers.test_xdr_roundtrip_fuzz"),
+    ("test_main.py", "TestFuzzers.test_transaction_fuzzer"),
+    ("test_main.py", "TestFuzzers.test_overlay_fuzzer"),
 }
 REFUSED = {("test_main.py", "TestConfig.test_toml_parsing")}
 TIMED = {("test_anomaly.py",
@@ -129,7 +135,8 @@ def test_every_case_runs_but_those_named():
         assert c in cases(f), (f, c)
     assert APPLICATION <= set(cases("test_main.py"))
     assert not APPLICATION & {c for _, c in AWAITING_COMMANDS | REFUSED}
-    for f in FILES[:-1]:
+    assert {c for _, c in COMMAND_CASES} <= set(cases("test_main.py"))
+    for f in FILES:
         import ast
         from test_torch_mirror import TESTS, _marks
         tree = ast.parse((TESTS / f).read_text())
@@ -145,3 +152,4 @@ def test_every_case_runs_but_those_named():
                           and fn.name.startswith("test_")
                           and "slow" not in _marks(fn)]
         assert sorted(every) == sorted(cases(f)), f
+    assert not AWAITING_COMMANDS
