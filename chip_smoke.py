@@ -164,6 +164,24 @@ with every 100th signature's R corrupted (655 bad, 64,881 accepted); and
   (held to the node's last ledger and its archive's CPU replay), publish,
   and new-hist into a second archive;
 
+* determinism (determinism): (a) the port's corelint
+  (``python -m stellar_core_tpu_torch.lint``) over the port, this script
+  and native/*.c, held to its baseline
+  (stellar_core_tpu_torch/lint/LINT_BASELINE.json), the four determinism
+  rules alone, and ``python -m stellar_core_tpu_torch._native_build
+  --warn-check``, whose only allowed failure is native/capply.c's
+  -Warray-parameter mismatches (a fault of the shared source that GCC 11
+  and later report, see WARN_KNOWN); (b) the hash-seed differential at
+  the reference's defaults (``simulation.hashseed_diff``: the 51-node
+  partition-flap-heal chaos campaign and the Soroban campaign of 50
+  ledgers, each in two processes under PYTHONHASHSEED 0 and 424242 with
+  the detguard armed), both IDENTICAL with regions entered and no trip;
+  (c) the network phase's card run (network_run) in two processes, one
+  under PYTHONHASHSEED 0 and one under 424242, both with STPU_DETGUARD=1:
+  every ledger of each on the accel-off run's hashes, K-G launched in
+  each, the guard armed with regions entered and no trip.  (b) runs
+  beside (c);
+
 * the graft entry (stellar_core_tpu_torch/graft_entry.py): K-W, the
   windows form of K-G, against its plain version on the cold path's 8,192
   signatures, its fused accept count, and ``entry()``'s step; then the
@@ -225,6 +243,7 @@ from stellar_core_tpu_torch.herder.quorum_intersection import (
 from stellar_core_tpu_torch.herder.tx_queue import AddResult
 from stellar_core_tpu_torch.ledger import native_apply
 from stellar_core_tpu_torch.ledger.manager import LedgerManager
+from stellar_core_tpu_torch.simulation import hashseed_diff
 from stellar_core_tpu_torch.testutils import (TestAccount, build_tx,
                                               create_account_op,
                                               native_payment_op)
@@ -2293,7 +2312,7 @@ def _node_client(port: int, rec: _NodeRecorder, out: dict,
         out["checkpoints"] = list(published)
         out["lcl"] = app.lm.last_closed_ledger_seq
         out["run_s"] = time.perf_counter() - t0
-    except BaseException as e:
+    except BaseException as e:  # corelint: disable=exception-hygiene -- every failure goes to node_run, which re-raises it on the main thread
         out["error"] = e
     finally:
         if up and not stop.is_set():
@@ -2525,11 +2544,12 @@ def network_run(accel: bool, device=None, n_accounts=NETWORK_ACCOUNTS,
             "host": {k: after[k] - before[k] for k in after}}
 
 
-def _network_view(run: dict) -> list:
-    """What of a network_run two runs of one script must share: the first
-    validator's ledgers (the others' are held equal to it apart)."""
+def _network_view(run: dict, node: int = 0) -> list:
+    """What of a network_run two runs of one script must share: a
+    validator's ledgers (the first's; the others' are held equal to it
+    apart)."""
     return [{k: v for k, v in c.items() if k != "succeeded"}
-            for c in run["closes"][0]]
+            for c in run["closes"][node]]
 
 
 def network_phase(device=None, **kw) -> dict:
@@ -2543,9 +2563,8 @@ def network_phase(device=None, **kw) -> dict:
     card = network_run(True, device, **kw)
     for name, run in (("card", card), ("oracle", oracle)):
         first = _network_view(run)
-        for i, mine in enumerate(run["closes"][1:], 1):
-            view = [{k: v for k, v in c.items() if k != "succeeded"}
-                    for c in mine]
+        for i in range(1, len(run["closes"])):
+            view = _network_view(run, i)
             n = min(len(view), len(first))
             if view[:n] != first[:n]:
                 raise AssertionError(f"network ({name}): validator {i} "
@@ -2584,7 +2603,7 @@ def network_phase(device=None, **kw) -> dict:
             "collect_wait_s": sum(s.get("collect_wait_s", 0.0)
                                   for s in card["stats"]),
             "host": card["host"], "oracle_host": oracle["host"],
-            "batch_checks": checks}
+            "batch_checks": checks, "oracle_view": _network_view(oracle)}
 
 
 # -- the fleet: five `run` processes over TCP, a rejoin by parallel catchup ---
@@ -3034,6 +3053,229 @@ def commands_phase(node_dir: str, node: dict, device=None) -> dict:
             "last_closed": last_seq, "replayed_to": replay_seq,
             "dump_ledger_entries": len(entries), "commands": runs,
             "seconds": sum(r["seconds"] for r in runs.values())}
+
+
+# -- determinism: the port's lint, the hash-seed differential, the card's
+# path under the guard --------------------------------------------------------
+
+DET_RULES = ("iteration-order", "float-discipline", "hash-order",
+             "rng-discipline")
+LINT_BASELINE = "stellar_core_tpu_torch/lint/LINT_BASELINE.json"
+DET_CHILD_TIMEOUT_S = 900.0
+# native/capply.c declares 19 static functions with `const uint8_t *` and
+# defines them with `const uint8_t name[32]`; GCC 11 and later report each
+# under -Wall (-Warray-parameter), so --warn-check fails on it, for the
+# reference's build as for the port's.  The source is shared and left as it
+# is; every other diagnostic, and any in another source, fails the phase.
+WARN_KNOWN = ("native/capply.c", "[-Werror=array-parameter=]")
+
+
+def _run_cli(argv) -> dict:
+    """`python argv...` from the repo root: its exit code, output and
+    seconds."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *argv], capture_output=True,
+                         text=True, timeout=600, env=_repo_env(),
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    return {"rc": res.returncode, "out": res.stdout + res.stderr,
+            "seconds": time.perf_counter() - t0}
+
+
+def warn_check_verdict(out: str) -> dict:
+    """--warn-check's output read: each source's verdict line, and whether
+    every failure is WARN_KNOWN's (a failing source's diagnostics are the
+    lines up to the next verdict)."""
+    verdicts, errors, current = {}, [], None
+    for line in out.splitlines():
+        m = re.match(r"^(native/\S+\.c): (warning-clean|FAIL.*|.*skipped.*)$",
+                     line)
+        if m:
+            current = m.group(1)
+            verdicts[current] = m.group(2)
+        elif line.startswith("warn-check skipped"):
+            verdicts["*"] = line
+        elif " error: " in line or " warning: " in line:
+            errors.append((current, line))
+    failing = sorted(s for s, v in verdicts.items() if v.startswith("FAIL"))
+    known = bool(failing) and failing == [WARN_KNOWN[0]] and bool(errors) \
+        and all(src == WARN_KNOWN[0] and line.endswith(WARN_KNOWN[1])
+                for src, line in errors)
+    return {"verdicts": verdicts, "failing": failing,
+            "diagnostics": len(errors), "only_known_fault": known}
+
+
+def determinism_static(run_cli=_run_cli) -> dict:
+    """(a): the port's lint with its baseline, the four determinism rules
+    alone, and the native sources' warning gate."""
+    lint = run_cli(["-m", "stellar_core_tpu_torch.lint", "--baseline",
+                    LINT_BASELINE])
+    det = run_cli(["-m", "stellar_core_tpu_torch.lint", "--rules",
+                   ",".join(DET_RULES)])
+    warn = run_cli(["-m", "stellar_core_tpu_torch._native_build",
+                    "--warn-check"])
+    verdict = warn_check_verdict(warn["out"])
+    bad = [f"{name} exited {r['rc']}: {r['out'][-800:]}"
+           for name, r in (("lint", lint), ("determinism rules", det))
+           if r["rc"] != 0]
+    if warn["rc"] != 0 and not verdict["only_known_fault"]:
+        bad.append(f"--warn-check exited {warn['rc']}: {warn['out'][-800:]}")
+    if bad:
+        raise AssertionError("determinism (a): " + "; ".join(bad))
+
+    def said(r):
+        summary = re.findall(r"^corelint: .*$", r["out"], re.M)
+        return {"seconds": r["seconds"],
+                "said": summary[-1] if summary else None}
+
+    return {"lint": said(lint), "determinism_rules": said(det),
+            "warn_check": {"rc": warn["rc"], "seconds": warn["seconds"],
+                           **verdict}}
+
+
+def determinism_differential(**kw) -> list:
+    """(b): simulation.hashseed_diff's two campaigns, each a pair of
+    processes under its two seeds (kw: run_pair's orgs, ledgers); each must
+    be IDENTICAL, with the detguard armed, regions entered and no trip."""
+    reps = [hashseed_diff.run_pair(c, timeout_s=DET_CHILD_TIMEOUT_S, **kw)
+            for c in hashseed_diff.CAMPAIGNS]
+    bad = [f"{r['campaign']}: {r['errors'] or r['divergence']}"
+           for r in reps if not r["ok"]]
+    if bad:
+        raise AssertionError("determinism (b): " + "; ".join(bad))
+    return [{k: r[k] for k in ("campaign", "seeds", "wall_s", "identical",
+                               "detguard", "children")} for r in reps]
+
+
+def network_child(args_json: str) -> int:
+    """(c)'s child: network_run with accel on the card (or args' device) in
+    this process, which the parent started with STPU_DETGUARD=1 and its
+    PYTHONHASHSEED; writes validator 0's ledgers (_network_view), whether
+    every validator closed them alike, the statuses, K-G's launches and the
+    guard's stats to args' `out` as JSON."""
+    from stellar_core_tpu_torch.util import detguard
+    args = json.loads(args_json)
+    run = network_run(True, args.get("device"), **args.get("kw", {}))
+    first = _network_view(run)
+    agree = all(_network_view(run, i)[:len(first)] == first
+                for i in range(1, len(run["closes"])))
+    doc = {"hashseed": os.environ.get("PYTHONHASHSEED"), "view": first,
+           "validators_agree": agree,
+           "statuses": {str(k): v for k, v in run["statuses"].items()},
+           "launches": run["launches"], "run_s": run["run_s"],
+           "admitted": run["admitted"],
+           "detguard": {"armed": detguard.enabled(), **detguard.stats()}}
+    with open(args["out"], "w") as f:
+        json.dump(doc, f)
+    return 0
+
+
+def network_child_faults(docs, want: list, device=None) -> list:
+    """What (c) holds each child's document (seed, doc) to: `want`'s
+    ledgers, every validator alike, the guard armed with regions entered
+    and no trip, and on the card (device None) K-G launched."""
+    bad = []
+    for seed, doc in docs:
+        guard = doc["detguard"]
+        if doc["view"] != want:
+            bad.append(f"seed {seed}: ledgers {doc['view']} are not the "
+                       f"accel-off run's {want}")
+        if not doc["validators_agree"]:
+            bad.append(f"seed {seed}: the validators closed differently")
+        if not (guard["armed"] and guard["regions"] > 0
+                and guard["trips"] == 0):
+            bad.append(f"seed {seed}: detguard {guard}")
+        if device is None and not doc["launches"].get("K-G"):
+            bad.append(f"seed {seed}: K-G never launched")
+    return bad
+
+
+def determinism_network(oracle_view: list, device=None, **kw) -> dict:
+    """(c): network_child in two processes at once, one under each of
+    hashseed_diff's two seeds, both armed; each must close every ledger as `oracle_view` (the accel-off
+    run's ledgers, validator 0's), every validator alike, launch K-G (on
+    the card) and enter guarded regions without a trip."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-det-")
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for seed in hashseed_diff.DEFAULT_SEEDS:
+            out = os.path.join(tmp, f"child-{seed}.json")
+            arg = json.dumps({"out": out, "device": device, "kw": kw})
+            env = _repo_env(PYTHONHASHSEED=str(seed), STPU_DETGUARD="1")
+            with open(os.path.join(tmp, f"child-{seed}.log"), "w") as log:
+                procs.append((seed, out, log.name, subprocess.Popen(
+                    [sys.executable, "-c", "import sys, chip_smoke; "
+                     "sys.exit(chip_smoke.network_child(sys.argv[1]))", arg],
+                    cwd=repo, env=env, stdout=log,
+                    stderr=subprocess.STDOUT)))
+        docs, bad = [], []
+        deadline = time.perf_counter() + DET_CHILD_TIMEOUT_S
+        for seed, out, log, proc in procs:
+            try:
+                proc.wait(max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            if proc.returncode != 0:
+                with open(log) as f:
+                    tail = f.read()[-1500:]
+                bad.append(f"seed {seed}: exit {proc.returncode}: {tail}")
+                continue
+            with open(out) as f:
+                docs.append((seed, json.load(f)))
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    want = json.loads(json.dumps(oracle_view))
+    bad += network_child_faults(docs, want, device)
+    if bad:
+        raise AssertionError("determinism (c): " + "; ".join(bad))
+    return {"seeds": list(hashseed_diff.DEFAULT_SEEDS), "wall_s": wall_s,
+            "ledgers": len(want), "last_hash": want[-1]["hash"],
+            "children": [{k: d[k] for k in ("hashseed", "launches", "run_s",
+                                            "admitted", "statuses",
+                                            "detguard")} for _, d in docs]}
+
+
+def determinism_phase(oracle_view: list, device=None, differential=None,
+                      network=None, run_cli=_run_cli) -> dict:
+    """The determinism phase: (a) determinism_static, then (b)
+    determinism_differential (kw `differential`) on a helper thread beside
+    (c) determinism_network (kw `network`), against the network phase's
+    accel-off ledgers `oracle_view`.  Any part's failure fails the phase."""
+    t0 = time.perf_counter()
+    static = determinism_static(run_cli)
+    static_s = time.perf_counter() - t0
+    got = {}
+
+    def differential_part():
+        t1 = time.perf_counter()
+        try:
+            got["campaigns"] = determinism_differential(**(differential or {}))
+        except BaseException as e:  # corelint: disable=exception-hygiene -- handed to the main thread, which re-raises it below
+            got["error"] = e
+        got["seconds"] = time.perf_counter() - t1
+
+    helper = threading.Thread(target=differential_part,
+                              name="chip-smoke-differential", daemon=True)
+    helper.start()
+    try:
+        t2 = time.perf_counter()
+        card = determinism_network(oracle_view, device, **(network or {}))
+        card_s = time.perf_counter() - t2
+    finally:
+        helper.join()
+    if "error" in got:
+        raise got["error"]
+    return {"phase": "determinism", "static": static, "static_s": static_s,
+            "differential": got["campaigns"],
+            "differential_s": got["seconds"], "network": card,
+            "network_s": card_s}
 
 
 # -- quorum intersection -----------------------------------------------------
@@ -3925,6 +4167,7 @@ def run(dev) -> int:
         emit(node)
         t0 = time.perf_counter()
         network = network_phase()
+        network_oracle = network.pop("oracle_view")
         network.update(seconds=time.perf_counter() - t0, nvidia_smi=smi)
         emit(network)
 
@@ -3940,6 +4183,13 @@ def run(dev) -> int:
         emit(commands)
     finally:
         shutil.rmtree(node_dir, ignore_errors=True)
+
+    # -- determinism: the lint, the hash-seed differential, and the
+    # network's card run in two processes under two hash seeds, guarded ---
+    t0 = time.perf_counter()
+    det = determinism_phase(network_oracle)
+    det.update(seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    emit(det)
 
     # -- quorum intersection (bench.py config 5) ----------------------------
     widest, at_65536 = quorum_kernels_vs_plain(dev)

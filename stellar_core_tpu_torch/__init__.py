@@ -13,7 +13,9 @@ catchup seam that replays a history archive (``work``, ``historywork``,
 ``catchup`` with range-parallel catchup, ``history.manager``,
 ``simulation.loadgen``, ``util.process``, ``main.config`` and the
 catchup subcommands of ``main.commandline``: ``python -m
-stellar_core_tpu_torch catchup``).  It imports
+stellar_core_tpu_torch catchup``), and of every other module of the JAX
+package, corelint (``lint``, retargeted at this package's tree) and the
+hash-seed differential (``simulation.hashseed_diff``) included.  It imports
 ``torch``, numpy and the standard library only: never ``jax`` and nothing
 of ``stellar_core_tpu``.
 Where it needs code from the JAX package it keeps its own copy, under the
@@ -22,3 +24,14 @@ same module name so a reader can find each counterpart.
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 selects the plain versions (the CPU tests do so); see ``device.resolve``.
 """
+
+# With STPU_NATIVE_SANITIZE=1 the ASan+UBSan instrumented native libraries
+# (build/torch_native/asan/, see _native_build) replace the plain ones for
+# this process; `python -m stellar_core_tpu_torch._native_build --asan-exec
+# CMD...` runs CMD so, with the sanitizer runtime preloaded.
+import os as _os
+
+if _os.environ.get("STPU_NATIVE_SANITIZE") == "1":
+    from . import _native_build as _nb
+
+    _nb.activate_sanitized()

@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import threading
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -46,6 +45,7 @@ import torch
 
 from .. import _cuda_build
 from ..device import Shards, parts, resolve_shards, upload
+from ..util.lockorder import make_lock
 from ..util.metrics import registry as _registry
 from . import field, tables as _tables
 from .curve import D, P, PointBatch, SQRT_M1, _recover_x, double_scalarmult_w2, point_encode
@@ -314,7 +314,7 @@ class Ed25519BatchVerifier:
         self._use_counts: dict = {}
         self.stats = {"table_sigs": 0, "generic_sigs": 0, "rejected_prep": 0,
                       "tables_built": 0}
-        self._lock = threading.Lock()
+        self._lock = make_lock("accel.ed25519.verifier")
 
     @staticmethod
     def _decode_pk(pk: bytes):
@@ -513,7 +513,7 @@ class Ed25519BatchVerifier:
 
 
 _verifiers: dict = {}  # (chunk, tail floor, hot threshold, devices) -> verifier
-_verifiers_lock = threading.Lock()
+_verifiers_lock = make_lock("accel.ed25519.verifiers")
 
 
 def _verifier_for(chunk_size: int, tail_floor: int, hot_threshold: int,

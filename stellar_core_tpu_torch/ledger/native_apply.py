@@ -36,8 +36,11 @@ try:
     if os.environ.get("STELLAR_TPU_NO_CAPPLY"):
         raise ImportError("capply disabled by STELLAR_TPU_NO_CAPPLY")
     # native/capply.c, built at first use (rebuilt when the source is
-    # newer); a missing compiler or a failed build leaves the Python path
+    # newer); a missing compiler or a failed build leaves the Python path,
+    # but a library that is present, stale and cannot be rebuilt
+    # fail-stops (StaleNativeExtensionError), as the reference's does
     from .. import _native_build
+    _native_build.require_fresh("_capply")
     _capply = _native_build.load("_capply")
 except ImportError:
     _capply = None

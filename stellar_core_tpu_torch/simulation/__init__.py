@@ -1,10 +1,12 @@
-"""Simulation layer: in-process multi-node networks + load generation.
+"""Simulation layer: in-process multi-node networks + load generation +
+chaos campaigns.
 
 Reference: src/simulation/ (SURVEY.md §2.1).  The copy of
 stellar_core_tpu/simulation/: its LoadGenerator, its in-process networks
 (simulation.simulation), the chaos campaigns on them (simulation.chaos),
 ApplyLoad (simulation.apply_load) and the multi-process TCP fleet
-(simulation.fleet); simulation.hashseed_diff is not ported yet.
+(simulation.fleet) and the hash-seed differential
+(simulation.hashseed_diff).
 """
 
 from .loadgen import LoadGenerator

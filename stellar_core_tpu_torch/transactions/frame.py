@@ -125,7 +125,7 @@ class TransactionFrame:
 
     def content_hash(self) -> bytes:
         """The transaction hash (ids history entries, preauth signers)."""
-        if self._hash is None:
+        if self._hash is None:  # corelint: owned-by=main -- a frame is hashed only on the thread that built or decoded it; other threads get its envelope's bytes
             self._hash = sha256(self.signature_payload())
         return self._hash
 

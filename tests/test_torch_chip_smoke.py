@@ -1081,3 +1081,118 @@ def test_commands_phase_on_the_cpu(plain_admission, tmp_path):
         chip_smoke.commands_phase(
             str(tmp_path), {**node, "last_closed": (1, "00" * 32)},
             device="cpu")
+
+
+# -- determinism ---------------------------------------------------------------
+
+CLEAN = ("native/cxdr.c: warning-clean\nnative/capply.c: warning-clean\n"
+         "native/cquorum.c: warning-clean\n")
+ARRAY_PARAM = ("/r/native/capply.c:4860:62: error: argument 4 of type "
+               "'const uint8_t[32]' with mismatched bound "
+               "[-Werror=array-parameter=]\n"
+               "/r/native/capply.c:2883:54: note: previously declared as "
+               "'const uint8_t *'\n")
+OTHER = "/r/native/capply.c:10:5: error: unused variable 'x' " \
+        "[-Werror=unused-variable]\n"
+
+
+@pytest.mark.parametrize("out, failing, known", [
+    (CLEAN, [], False),
+    ("native/cxdr.c: warning-clean\nnative/capply.c: FAIL\n" + ARRAY_PARAM
+     + "cc1: all warnings being treated as errors\n"
+     "native/cquorum.c: warning-clean\n", ["native/capply.c"], True),
+    ("native/cxdr.c: warning-clean\nnative/capply.c: FAIL\n" + ARRAY_PARAM
+     + OTHER + "native/cquorum.c: warning-clean\n", ["native/capply.c"],
+     False),
+    ("native/cxdr.c: FAIL\n" + ARRAY_PARAM.replace("capply", "cxdr")
+     + "native/capply.c: warning-clean\nnative/cquorum.c: warning-clean\n",
+     ["native/cxdr.c"], False),
+    ("native/cxdr.c: warning-clean\nnative/capply.c: FAIL (compiler did not "
+     "finish: timeout)\nnative/cquorum.c: warning-clean\n",
+     ["native/capply.c"], False),
+])
+def test_warn_check_verdict_knows_only_the_shared_fault(out, failing, known):
+    v = chip_smoke.warn_check_verdict(out)
+    assert v["failing"] == failing and v["only_known_fault"] is known
+    assert set(v["verdicts"]) == {"native/cxdr.c", "native/capply.c",
+                                  "native/cquorum.c"}
+
+
+def fake_cli(lint_rc=0, det_rc=0, warn_rc=0, warn_out=CLEAN):
+    def run(argv, timeout=600.0):
+        if argv[1] == "stellar_core_tpu_torch._native_build":
+            return {"rc": warn_rc, "out": warn_out, "seconds": 0.1}
+        rc = det_rc if "--rules" in argv else lint_rc
+        return {"rc": rc, "seconds": 0.1,
+                "out": "corelint: 154 files, 0 violation(s) [clean]\n"}
+    return run
+
+
+@pytest.mark.parametrize("kw, match", [
+    ({}, None),
+    ({"warn_rc": 1, "warn_out": "native/capply.c: FAIL\n" + ARRAY_PARAM},
+     None),
+    ({"lint_rc": 1}, "lint exited 1"),
+    ({"det_rc": 1}, "determinism rules exited 1"),
+    ({"warn_rc": 1, "warn_out": "native/capply.c: FAIL\n" + OTHER},
+     "--warn-check exited 1"),
+])
+def test_determinism_static_fails_on_any_finding(kw, match):
+    if match is None:
+        rep = chip_smoke.determinism_static(fake_cli(**kw))
+        assert rep["warn_check"]["rc"] == kw.get("warn_rc", 0)
+    else:
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.determinism_static(fake_cli(**kw))
+
+
+def child_doc(view):
+    return {"view": view, "validators_agree": True, "launches": {"K-G": 12},
+            "detguard": {"armed": True, "regions": 40, "trips": 0}}
+
+
+@pytest.mark.parametrize("spoil, device, match", [
+    ({}, None, None),
+    ({"launches": {"K-G": 0}}, "cpu", None),
+    ({"launches": {"K-G": 0}}, None, "K-G never launched"),
+    ({"detguard": {"armed": True, "regions": 40, "trips": 1}}, None,
+     "detguard"),
+    ({"detguard": {"armed": False, "regions": 0, "trips": 0}}, None,
+     "detguard"),
+    ({"validators_agree": False}, None, "closed differently"),
+    ({"view": [{"seq": 2, "hash": "00" * 32}]}, None, "accel-off run's"),
+])
+def test_network_children_are_held_to_the_oracle_and_the_guard(
+        spoil, device, match):
+    want = [{"seq": 2, "hash": "ab" * 32}]
+    docs = [(0, child_doc(want)), (424242, {**child_doc(want), **spoil})]
+    faults = chip_smoke.network_child_faults(docs, want, device)
+    if match is None:
+        assert faults == []
+    else:
+        assert len(faults) == 1 and faults[0].startswith("seed 424242")
+        assert match in faults[0]
+
+
+def test_determinism_phase_on_the_cpu(plain_admission):
+    """(a) read from the command lines' answers, (b) a small flagship and
+    Soroban campaign, (c) a small network in two processes under the two
+    hash seeds with the guard armed, on the accel-off run's ledgers."""
+    oracle = chip_smoke._network_view(
+        chip_smoke.network_run(False, **NETWORK_SMALL))
+    rep = chip_smoke.determinism_phase(
+        oracle, device="cpu", differential={"orgs": 3, "ledgers": 3},
+        network=NETWORK_SMALL, run_cli=fake_cli())
+    assert [c["campaign"] for c in rep["differential"]] \
+        == ["flagship", "soroban"]
+    for c in rep["differential"]:
+        assert c["identical"] and len(c["children"]) == 2
+        assert all(g["armed"] and g["regions"] > 0 and g["trips"] == 0
+                   for g in c["detguard"])
+    net = rep["network"]
+    assert [c["hashseed"] for c in net["children"]] == ["0", "424242"]
+    assert net["ledgers"] == len(oracle) and net["last_hash"] \
+        == oracle[-1]["hash"]
+    assert all(c["detguard"]["regions"] > 0 and c["detguard"]["trips"] == 0
+               for c in net["children"])
+    json.dumps(rep)

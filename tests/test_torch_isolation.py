@@ -83,6 +83,15 @@ FLEET = {f"stellar_core_tpu_torch.{m}" for m in (
     "fuzz", "simulation.fleet", "simulation.chaos", "simulation.apply_load",
     "util.fleettrace", "util.fs")}
 
+# the last slice: corelint and the hash-seed differential
+LINT = {f"stellar_core_tpu_torch.{m}" for m in (
+    "lint", "lint.__main__", "lint.core", "lint.clex", "lint.rules",
+    *(f"lint.rules.{r}" for r in ("clock", "decode_free", "determinism",
+                                  "eventlog", "exceptions", "ledger_txn",
+                                  "lock_order", "metric_names", "native_c",
+                                  "thread_safety")),
+    "simulation.hashseed_diff")}
+
 FOUNDATIONS = {f"stellar_core_tpu_torch.{m}" for m in (
     "_native_build", "transactions.signature_checker",
     *(f"util.{u}" for u in ("scheduler", "clock", "lockorder", "cache",
@@ -99,7 +108,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "stellar_core_tpu_torch.crypto.rfc8032",
             "stellar_core_tpu_torch.xdr", "stellar_core_tpu_torch.util",
             "stellar_core_tpu_torch.transactions"} | FOUNDATIONS \
-        | STATE_AND_APPLY | CATCHUP | LIVE_NODE | NODE | FLEET \
+        | STATE_AND_APPLY | CATCHUP | LIVE_NODE | NODE | FLEET | LINT \
         <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
@@ -125,6 +134,42 @@ WORKER_PROBE = (
     "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
     "             or m == 'stellar_core_tpu' or m.startswith('stellar_core_tpu.'))\n"
     "print('RC', rc, 'BAD', bad)\n")
+
+
+LAST_SLICE_PROBE = (
+    "import contextlib, io, runpy, sys\n"
+    "out = io.StringIO()\n"
+    "for mod, argv in (('stellar_core_tpu_torch.lint', ['--list-rules']),\n"
+    "                  ('stellar_core_tpu_torch.lint',\n"
+    "                   ['stellar_core_tpu_torch/lint', 'native']),\n"
+    "                  ('stellar_core_tpu_torch._native_build', ['--bogus'])):\n"
+    "    sys.argv = [mod] + argv\n"
+    "    try:\n"
+    "        with contextlib.redirect_stdout(out), \\\n"
+    "                contextlib.redirect_stderr(out):\n"
+    "            runpy.run_module(mod, run_name='__main__')\n"
+    "    except SystemExit:\n"
+    "        pass\n"
+    "from stellar_core_tpu_torch.simulation import hashseed_diff as h\n"
+    "p = h._campaign_payload('soroban', 17, 2)\n"
+    "assert p['passed'], p\n"
+    "assert 'iteration-order' in out.getvalue(), out.getvalue()\n"
+    "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+    "             or m == 'stellar_core_tpu' or m.startswith('stellar_core_tpu.'))\n"
+    "print(bad)\n")
+
+
+def test_the_last_slice_runs_without_jax():
+    """The new modules run, not only imported, in a fresh process: the
+    lint command line (listing its rules, linting its own package and the
+    C sources), _native_build's command line and a hash-seed campaign's
+    child payload; neither jax nor the JAX package is then loaded."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", LAST_SLICE_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_a_spawned_range_worker_imports_no_jax(tmp_path):
@@ -291,8 +336,9 @@ def test_the_resolve_walk_sees_relative_and_lazy_imports():
         ("stellar_core_tpu_torch", ("work",)),
         ("stellar_core_tpu_torch.historywork.works", ())]
     assert _module_file("stellar_core_tpu_torch.simulation.hashseed_diff") \
-        is None
-    assert _module_file("stellar_core_tpu_torch.lint") is None
+        is not None
+    assert _module_file("stellar_core_tpu_torch.lint") is not None
+    assert _module_file("stellar_core_tpu_torch.no_such_module") is None
     assert _module_file("stellar_core_tpu_torch.simulation.chaos") is not None
     assert _module_file("stellar_core_tpu_torch.overlay.peer") is not None
     assert _module_file("stellar_core_tpu_torch.herder.tx_queue") is not None

@@ -11,8 +11,8 @@ the error it raised) and the test's own outcome; ``assert_mirrored``
 holds the two roots' records equal, byte for byte.
 
 ``cases`` lists a file's tests that the port can run: a test whose body
-names a module the port does not have yet (lint, the hash-seed
-differential) is left out, as is one marked slow (the tier-1
+names a module the port does not have is left out (since the last
+slice every module has its copy), as is one marked slow (the tier-1
 run deselects those).  Fixtures are the file's own, called as plain functions
 (a module-scoped one anew for each case); ``tmp_path``,
 ``tmp_path_factory``, ``monkeypatch``, ``capsys`` and ``caplog`` are
@@ -48,6 +48,9 @@ REPO = TESTS.parent
 _NAME = re.compile(r"\bstellar_core_tpu\b")
 _DOTTED = re.compile(r"\bstellar_core_tpu((?:\.\w+)+)")
 _FROM_PKG = re.compile(r"from stellar_core_tpu import (\([^)]*\)|[^\n]+)")
+# the reference's timing driver, which its clock rule exempts; the port's
+# is chip_smoke.py (a file name, so "workbench.py" is not one)
+_BENCH = re.compile(r"(?<![\w.])bench\.py\b")
 # the port's native modules are built, not files
 _BUILT = {"_cxdr", "_capply", "_cquorum"}
 # names the port defines whose use reaches, through a lazy import inside
@@ -127,10 +130,12 @@ def cases(filename: str) -> list:
 
 def rewrite(source: str, root: str) -> str:
     """`source` with every name of the reference's package pointed at
-    `root`, and pytest's fixture decorators removed (a fixture is then a
-    plain function that run_case calls)."""
+    `root`, in imports and in path strings alike ("stellar_core_tpu/scp/"
+    becomes the port's consensus scope), the reference's bench.py named
+    as the port's chip_smoke.py, and pytest's fixture decorators removed
+    (a fixture is then a plain function that run_case calls)."""
     if root != REF:
-        source = _NAME.sub(root, source)
+        source = _BENCH.sub("chip_smoke.py", _NAME.sub(root, source))
     return re.sub(r"^[ \t]*@pytest\.fixture(\([^)]*\))?[ \t]*\n", "", source,
                   flags=re.M)
 
@@ -385,6 +390,12 @@ def test_rewrite_points_every_name_at_the_root():
     assert "import stellar_core_tpu_torch.ledger.manager" in out
     assert "@pytest" not in out and "def root(mgr)" in out
     assert rewrite(out, PORT).count("stellar_core_tpu_torch_torch") == 0
+    paths = ('IN_SCOPE = "stellar_core_tpu/scp/mod.py"\n'
+             'lint(tmp_path, "bench.py")\nq = root / "workbench.py"\n')
+    assert rewrite(paths, PORT) == (
+        'IN_SCOPE = "stellar_core_tpu_torch/scp/mod.py"\n'
+        'lint(tmp_path, "chip_smoke.py")\nq = root / "workbench.py"\n')
+    assert rewrite(paths, REF) == paths
 
 
 def test_cases_leave_out_what_the_port_lacks():
@@ -395,18 +406,21 @@ def test_cases_leave_out_what_the_port_lacks():
     # the overlay and the application, ported now
     assert ported(".overlay") and ported(".overlay.peer")
     assert ported(".main.application") and ported(".simulation.simulation")
-    # the chaos campaigns, the fuzzers and the fleet, ported now; lint and
-    # hashseed_diff not yet
+    # the chaos campaigns, the fuzzers and the fleet, ported now; and the
+    # last slice, lint and hashseed_diff
     assert ported(".simulation.chaos") and ported(".fuzz")
     assert ported(".simulation.fleet") and ported(".util.fleettrace")
-    assert not ported(".lint") and not ported(".simulation.hashseed_diff")
+    assert ported(".lint") and ported(".simulation.hashseed_diff")
+    assert ported(".lint.rules.determinism") and ported(".lint.clex")
     assert unported("from stellar_core_tpu.overlay.peer import Peer\n"
                     "from stellar_core_tpu import scp, overlay, fuzz, xdr\n"
                     "from stellar_core_tpu.simulation.chaos import C\n"
                     "import stellar_core_tpu.simulation.hashseed_diff\n"
                     "import stellar_core_tpu.simulation.simulation\n"
-                    "import stellar_core_tpu.lint.rules\n") \
-        == [".lint.rules", ".simulation.hashseed_diff"]
+                    "import stellar_core_tpu.lint.rules\n") == []
+    # a module the port does not have is still caught
+    assert unported("import stellar_core_tpu.no_such_module\n") \
+        == [".no_such_module"]
     names = cases("test_tx_apply.py")
     assert "test_fee_bump" in names
     # imports catchup and history.manager in its body, both ported now
