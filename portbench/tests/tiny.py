@@ -1,0 +1,31 @@
+"""Tiny cells for the CPU tests: each configuration cut to a few hundred
+accounts and a few seconds, the port on its plain versions."""
+
+import copy
+import json
+from pathlib import Path
+
+BENCH = Path(__file__).resolve().parent.parent
+
+
+def cell(workload: str, mix: dict = None, **archive) -> dict:
+    bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
+    w = {x["name"]: x for x in bench["workloads"]}[workload]
+    cfg = json.loads((BENCH / "configs" / f"{w['config']}.json")
+                     .read_text())
+    overrides = mix or {}
+    mix = json.loads((BENCH / "mixes" / f"{w['traffic']}.json").read_text())
+    cfg = copy.deepcopy(cfg)
+    if cfg["runner"] == "catchup":
+        cfg["archive"].update(accounts=200, txs_per_ledger=12,
+                              payment_ledgers=4, corrupt_every=7,
+                              **archive)
+    else:
+        cfg.update(accounts=300, ledger_s=1)
+        cfg["node"]["ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING"] = True
+        # the card's machine has no libsodium, so the node closes on its
+        # Python path there; hold this machine to the same path
+        cfg["node"]["NATIVE_CLOSE"] = "off"
+        mix.update(rate_tx_s=10, corrupt_every=5)
+    mix.update(overrides)
+    return {"workload": w, "config": cfg, "mix": mix}
