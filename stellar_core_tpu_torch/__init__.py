@@ -35,3 +35,8 @@ if _os.environ.get("STPU_NATIVE_SANITIZE") == "1":
     from . import _native_build as _nb
 
     _nb.activate_sanitized()
+
+# Every pass of the cyclic collector is timed into `process.gc-pause`.
+from .util import tracing as _tracing  # noqa: E402
+
+_tracing.install_gc_pause_timer()

@@ -45,6 +45,7 @@ import torch
 
 from .. import _cuda_build
 from ..device import Shards, parts, resolve_shards, upload
+from ..util import tracing
 from ..util.lockorder import make_lock
 from ..util.metrics import registry as _registry
 from . import field, tables as _tables
@@ -339,11 +340,15 @@ class Ed25519BatchVerifier:
         """Dispatch-only half: host prep + kernel enqueue, no sync.  Returns
         a collector callable; invoking it waits on the CUDA event recorded
         after each shard's last launch, copies the verdicts home and
-        returns them."""
+        returns them.  The host prep, up to the last launch enqueued, is
+        the `accel.ed25519.prep` span (args n, hot, cold, cpu_s); its timer
+        takes the prep's CPU seconds, since a worker thread's wall time
+        holds its waits for the GIL."""
         n = len(pks)
         if len(sigs) != n or len(msgs) != n:
             raise ValueError("pks, sigs and msgs differ in length")
-        with self._lock:
+        with self._lock, tracing.timed_span("accel.ed25519.prep", cpu=True,
+                                              n=n):
             return self._verify_async(pks, sigs, msgs, n)
 
     def _verify_async(self, pks, sigs, msgs, n: int):
@@ -421,6 +426,7 @@ class Ed25519BatchVerifier:
         cold_idx = [i for i in live if bytes(pks[i]) not in hot_pks]
         self.stats["table_sigs"] += len(hot_idx)
         self.stats["generic_sigs"] += len(cold_idx)
+        tracing.annotate(hot=len(hot_idx), cold=len(cold_idx))
         _registry().counter("accel.ed25519.table-sigs").inc(len(hot_idx))
         _registry().counter("accel.ed25519.generic-sigs").inc(len(cold_idx))
 

@@ -53,6 +53,7 @@ import itertools
 
 from ..util import eventlog
 from ..util import logging as slog
+from ..util import tracing
 from ..util.logging import discard_rate_limit, rate_limited
 from ..util.metrics import registry as _registry
 from ..util.racetrace import race_checked
@@ -656,11 +657,19 @@ class PreverifyPipeline:
         dispatched() keeps answering True for them — popping them all at
         first collect made the apply path re-dispatch each one
         synchronously (measured: every coalesced group was followed by N-1
-        redundant singleton dispatches)."""
-        if self.profile == self.PROFILE_RACE:
-            self._collect_race(checkpoint)
-        else:
-            self._collect_poll(checkpoint, last)
+        redundant singleton dispatches).  Each collect is a
+        `catchup.preverify.collect` span: `ripe` whether the group's
+        verdicts were in at entry (None: no group to collect); its wait
+        is the `catchup.preverify.collect-wait` timer."""
+        group = self._groups.get(checkpoint)
+        job = group["job"] if group is not None else None
+        with tracing.span("catchup.preverify.collect", checkpoint=checkpoint,
+                          ripe=job[1].is_set() if job is not None
+                          else None):
+            if self.profile == self.PROFILE_RACE:
+                self._collect_race(checkpoint)
+            else:
+                self._collect_poll(checkpoint, last)
 
     def _seed_group(self, group: dict, verdicts) -> None:
         """Push one materialized group's verdicts into the process verify
@@ -1314,7 +1323,13 @@ class CatchupManager:
         (reference: ApplyBucketsWork + BucketApplicator), verifying every
         bucket hash and the reassembled bucket-list hash against the
         header.  `checkpoint` targets a specific published boundary (the
-        CatchupRange bucket-apply point); default = the archive tip."""
+        CatchupRange bucket-apply point); default = the archive tip.
+        Spanned and timed as catchup.bucket-apply."""
+        with tracing.timed_span("catchup.bucket-apply"):
+            return self._catchup_minimal(archive, checkpoint)
+
+    def _catchup_minimal(self, archive: FileHistoryArchive,
+                         checkpoint: Optional[int]) -> LedgerManager:
         has = _archive_state(archive, checkpoint)
         if has is None:
             raise CatchupError(

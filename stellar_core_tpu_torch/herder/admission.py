@@ -267,6 +267,7 @@ class AdmissionPipeline:
         self._pending_sigs += len(frame.signatures)
         self._update_backpressure()
         if self._pending_sigs >= self.batch_size:
+            _registry().counter("herder.admission.flush-size").inc()
             self._flush()
         else:
             self._arm_flush_timer()
@@ -291,12 +292,14 @@ class AdmissionPipeline:
 
     def _deadline_flush(self) -> None:
         if self._pending:
+            _registry().counter("herder.admission.flush-deadline").inc()
             self._flush()
 
     def _flush(self) -> None:
         """Form a batch from everything pending and move it to the
         verification stage: device dispatch (accel, warmed, big enough) or
-        straight to the CPU finish action."""
+        straight to the CPU finish action.  Each caller counts its reason:
+        herder.admission.flush-size, -deadline or -drain."""
         if self._flush_timer is not None:
             self._flush_timer.cancel()
             self._flush_timer = None
@@ -342,20 +345,24 @@ class AdmissionPipeline:
         """Finish the oldest in-flight batch: race-bounded collect of its
         device verdicts (seeds the verify cache; a miss just means
         ``try_add`` recomputes on CPU — verdicts identical), then hand
-        every frame to the TransactionQueue."""
+        every frame to the TransactionQueue.  Spanned and timed as
+        herder.admission.collect, the device collect inside it as
+        herder.admission.device-wait."""
         self._collect_posted = False
         if not self._inflight:
             return
-        bid, batch = self._inflight.pop(0)
-        self._inflight_count -= len(batch)
-        if bid > 0:
-            self._preverify.collect(bid)
-        for p in batch:
-            self._tracked_hashes.discard(p.frame.content_hash())
-            res = self._admit(p.frame, p.t0, p.origin)
-            if p.on_result is not None:
-                p.on_result(res)
-        self._update_backpressure()
+        with tracing.timed_span("herder.admission.collect"):
+            bid, batch = self._inflight.pop(0)
+            self._inflight_count -= len(batch)
+            if bid > 0:
+                with tracing.timed_span("herder.admission.device-wait"):
+                    self._preverify.collect(bid)
+            for p in batch:
+                self._tracked_hashes.discard(p.frame.content_hash())
+                res = self._admit(p.frame, p.t0, p.origin)
+                if p.on_result is not None:
+                    p.on_result(res)
+            self._update_backpressure()
         self._post_collect()
 
     def _admit(self, frame, t0: float, origin: str) -> AddResult:
@@ -410,6 +417,7 @@ class AdmissionPipeline:
         while self.depth > 0 and n < max_crank:
             if self._pending and (self._flush_timer is None
                                   or not self._flush_timer.seated):
+                _registry().counter("herder.admission.flush-drain").inc()
                 self._flush()
             self.clock.crank()
             n += 1

@@ -2,11 +2,11 @@
 
 The runtime lint (tests/test_observability.py) only sees names a
 simulated close happens to record; this rule checks every string literal
-handed to `registry().timer/meter/gauge/counter/histogram/weak_gauge`
-and `perf.scoped_timer` across the whole tree at parse time: it must
-match ``layer.subsystem.event`` (METRIC_NAME_RE) and appear in
-CANONICAL_METRICS — or, for data-dependent families built with
-f-strings, start with a CANONICAL_PREFIXES entry.  Dynamic names
+handed to `registry().timer/meter/gauge/counter/histogram/weak_gauge`,
+`perf.scoped_timer` and `tracing.timed_span` across the whole tree at
+parse time: it must match ``layer.subsystem.event`` (METRIC_NAME_RE) and
+appear in CANONICAL_METRICS — or, for data-dependent families built
+with f-strings, start with a CANONICAL_PREFIXES entry.  Dynamic names
 (variables) are skipped; keep those funnels few.
 """
 
@@ -19,7 +19,7 @@ from ..core import FileContext, Rule, Violation, path_is
 
 REGISTRY_METHODS = ("counter", "meter", "timer", "gauge", "histogram",
                     "weak_gauge")
-FREE_FUNCS = ("scoped_timer",)
+FREE_FUNCS = ("scoped_timer", "timed_span")
 
 # the metric surface itself and the perf shim pass caller-supplied names
 EXEMPT_FILES = (

@@ -20,11 +20,14 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 from ..util import logging as slog
+from ..util import tracing
+from ..util.metrics import registry
 
 log = slog.get("CommandHandler")
 
@@ -83,11 +86,17 @@ class CommandHandler:
     # ------------------------------------------------------------------
     def _on_main(self, fn, name: str = "http-cmd") -> dict:
         """Marshal a mutation onto the clock loop and wait (reference:
-        CommandHandler routes through the app's main thread)."""
+        CommandHandler routes through the app's main thread).  The
+        current span, if any, gets the action's seconds waiting for the
+        crank loop (`wait_s`: posted to started, or to the end of the
+        wait where it never started), its seconds running (`run_s`) and
+        `timed_out`."""
         done = threading.Event()
         result: dict = {}
+        at: dict = {}
 
         def work() -> None:
+            at["start"] = time.perf_counter()
             try:
                 out = fn()
                 if isinstance(out, dict):
@@ -95,16 +104,28 @@ class CommandHandler:
             except Exception as e:
                 log.debug("admin action %s failed: %s", name, e)
                 result.update({"status": "ERROR", "detail": str(e)})
+            at["end"] = time.perf_counter()
             done.set()
 
+        posted = time.perf_counter()
         self.app.clock.post_action(work, name=name)
-        if not done.wait(timeout=10.0):
+        timed_out = not done.wait(timeout=10.0)
+        start = at.get("start")
+        end = at.get("end")
+        tracing.annotate(
+            wait_s=(start if start is not None else time.perf_counter())
+            - posted,
+            run_s=end - start if end is not None else None,
+            timed_out=timed_out)
+        if timed_out:
             return {"status": "ERROR", "detail": "timed out"}
         return result
 
     def _submit_tx_on_main(self, blob: bytes) -> dict:
-        return self._on_main(lambda: self.app.submit_tx(blob),
-                             name="http-tx")
+        """/tx: one `http.tx` root span on this HTTP thread."""
+        with tracing.span("http.tx"):
+            return self._on_main(lambda: self.app.submit_tx(blob),
+                                 name="http-tx")
 
     def _make_handler(self):
         handler_self = self
@@ -158,8 +179,7 @@ class CommandHandler:
                     elif url.path == "/metrics":
                         fmt = parse_qs(url.query).get("format", ["json"])[0]
                         if fmt == "prometheus":
-                            from ..util.metrics import (registry,
-                                                        render_prometheus)
+                            from ..util.metrics import render_prometheus
                             text = self._snap(lambda: render_prometheus(
                                 registry().snapshot()))
                             self._reply_raw(
@@ -168,7 +188,6 @@ class CommandHandler:
                         else:
                             self._reply({"metrics": self._snap(app.metrics)})
                     elif url.path == "/trace":
-                        from ..util import tracing
                         qs = parse_qs(url.query)
                         slot = _int_param(qs, "slot", default=-1) \
                             if "slot" in qs else None
@@ -180,7 +199,6 @@ class CommandHandler:
                         # incremental cross-node export: marks + finished
                         # root spans past the caller's watermark, plus a
                         # fresh clock anchor (util/fleettrace collector)
-                        from ..util import tracing
                         qs = parse_qs(url.query)
                         since = _int_param(qs, "since", default=0)
                         slot = _int_param(qs, "slot", default=-1) \
@@ -321,7 +339,6 @@ class CommandHandler:
                         # marshalled: the registry is mutated by main-thread
                         # metric insertion; clearing from the HTTP thread
                         # would race snapshot/insert iteration
-                        from ..util.metrics import registry
                         self._reply(handler_self._on_main(
                             lambda: registry().clear(), name="clearmetrics")
                             or {"status": "cleared"})

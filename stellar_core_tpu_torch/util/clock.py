@@ -41,6 +41,23 @@ def wall_now() -> float:
     return _time.time()
 
 
+def perf_wall_pair() -> Tuple[int, int]:
+    """(perf_counter_ns, time_ns) read as one pair: of three tries, the
+    wall reading taken between the two closest perf readings, paired with
+    their midpoint.  A perf_counter stamp p maps onto the time_ns clock
+    as wall + (p - perf); both clocks run at the same rate, so the map
+    holds until the wall clock is stepped, and a fresh pair undoes a
+    step."""
+    best = None
+    for _ in range(3):
+        p0 = _time.perf_counter_ns()
+        w = _time.time_ns()
+        p1 = _time.perf_counter_ns()
+        if best is None or p1 - p0 < best[0]:
+            best = (p1 - p0, (p0 + p1) // 2, w)
+    return best[1], best[2]
+
+
 class VirtualClock:
     def __init__(self, mode: ClockMode = ClockMode.VIRTUAL_TIME) -> None:
         self.mode = mode

@@ -33,6 +33,21 @@ from .lockorder import make_lock
 
 METRIC_NAME_RE = re.compile(r"^[a-z0-9]+(\.[a-z0-9-]+)+$")
 
+# The port's own names, beyond the reference's list: spans and timers
+# where the benchmark's windows spend their host time (util/tracing), the
+# trace buffer's eviction count and the collector's pauses.
+PORT_METRICS = frozenset({
+    "tracing.spans-evicted",
+    "process.gc-pause",
+    "herder.admission.flush-size",
+    "herder.admission.flush-deadline",
+    "herder.admission.flush-drain",
+    "herder.admission.collect",
+    "herder.admission.device-wait",
+    "accel.ed25519.prep",
+    "catchup.bucket-apply",
+})
+
 # The documented metric list (README.md §Observability).  The lint test
 # walks the live registry after a simulated ledger close + catchup and
 # asserts every recorded name is canonical; keep README and this list in
@@ -177,7 +192,7 @@ CANONICAL_METRICS = frozenset({
     "soroban.apply.clusters",
     "soroban.apply.phase",
     "soroban.transaction.apply",
-})
+}) | PORT_METRICS
 
 # Prefixes for families whose tail is data-dependent (one meter per overlay
 # message type; one probe counter per bucket-list level; one burn-rate
@@ -366,13 +381,19 @@ class Histogram:
 
     def update(self, value: float) -> None:
         with self._lock:
-            self.count += 1
-            self.total += value
-            if value > self.max:
-                self.max = value
-            if value < self.min:
-                self.min = value
-            self._reservoir.update(value)
+            self.update_unlocked(value)
+
+    def update_unlocked(self, value: float) -> None:
+        """update() without the lock, for a histogram with one writer
+        that may run while its own thread holds any lock (a gc
+        callback)."""
+        self.count += 1
+        self.total += value
+        if value > self.max:
+            self.max = value
+        if value < self.min:
+            self.min = value
+        self._reservoir.update(value)
 
     def quantiles(self) -> dict:
         with self._lock:
@@ -456,6 +477,12 @@ class MetricsRegistry:
     def timer(self, name: str) -> Timer:
         return self._get(name, Timer)
 
+    def lookup(self, name: str):
+        """The metric `name`, or None where it was never made.  Takes no
+        lock, for a caller that may run while its thread holds it (a gc
+        callback)."""
+        return self._metrics.get(name)
+
     def histogram(self, name: str) -> Histogram:
         # exact: a Timer IS-A Histogram but has a different snapshot shape
         return self._get(name, Histogram, exact=True)
@@ -507,7 +534,19 @@ class MetricsRegistry:
             m.reset()
 
 
-_registry = MetricsRegistry()
+# Made with each process registry, so that its writer only looks it up:
+# a gc callback (util.tracing) may run while its thread holds the
+# registry's lock, and cannot make a metric.
+GC_PAUSE_TIMER = "process.gc-pause"
+
+
+def _process_registry() -> MetricsRegistry:
+    reg = MetricsRegistry()
+    reg.timer(GC_PAUSE_TIMER)
+    return reg
+
+
+_registry = _process_registry()
 
 
 def registry() -> MetricsRegistry:
@@ -519,7 +558,7 @@ def registry() -> MetricsRegistry:
 
 def reset_registry() -> None:
     global _registry
-    _registry = MetricsRegistry()
+    _registry = _process_registry()
 
 
 # ---------------------------------------------------------------------------

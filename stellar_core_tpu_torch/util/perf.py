@@ -1,9 +1,9 @@
-"""Perf tracing: slow-execution logging + torch profiler hook.
+"""Perf tracing: slow-execution logging.
 
 Reference: src/util/LogSlowExecution.{h,cpp} (warn when a scope exceeds a
 threshold) and the Perf log partition.  Timing data itself lands in the
 util.metrics registry (one timer surface); this module adds the
-slow-threshold warning and the device profiler wrapper.
+slow-threshold warning.
 """
 
 from __future__ import annotations
@@ -60,24 +60,3 @@ def scoped_timer(name: str, slow_threshold=_USE_DEFAULT):
         if slow_threshold is not None and dt > slow_threshold:
             log.warning("'%s' took %.3fs (threshold %.3fs)",
                         name, dt, slow_threshold)
-
-
-@contextlib.contextmanager
-def torch_profile(log_dir: str):
-    """Device-level profiler trace around a scope (the card's analog of
-    the reference's perf instrumentation): a torch.profiler trace of the
-    CPU and, where CUDA is available, the card, written to `log_dir` as a
-    TensorBoard trace; no-op if the profiler is unavailable."""
-    try:
-        import torch
-        from torch import profiler
-    except ImportError:
-        yield
-        return
-    activities = [profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(profiler.ProfilerActivity.CUDA)
-    with profiler.profile(
-            activities=activities,
-            on_trace_ready=profiler.tensorboard_trace_handler(log_dir)):
-        yield

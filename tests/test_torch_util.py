@@ -108,7 +108,10 @@ def test_metrics_snapshots_and_prometheus(seed, monkeypatch):
 
 
 def test_metrics_name_rules_and_type_clash():
-    assert p_metrics.CANONICAL_METRICS == r_metrics.CANONICAL_METRICS
+    # the reference's list, and the port's own names beside it
+    assert p_metrics.CANONICAL_METRICS \
+        == r_metrics.CANONICAL_METRICS | p_metrics.PORT_METRICS
+    assert not p_metrics.PORT_METRICS & r_metrics.CANONICAL_METRICS
     assert p_metrics.CANONICAL_PREFIXES == r_metrics.CANONICAL_PREFIXES
     assert p_metrics.METRIC_NAME_RE.pattern == r_metrics.METRIC_NAME_RE.pattern
 
@@ -603,13 +606,3 @@ def test_scoped_timer_and_slow_warnings(monkeypatch, caplog):
     got = perf_scenario(p_perf, p_metrics, monkeypatch, caplog)
     assert got == want
     assert len(want[0]) == 3
-
-
-def test_torch_profile_writes_a_trace(tmp_path):
-    """perf.jax_profile's counterpart: a torch.profiler trace of the
-    scope (CPU here), written as a TensorBoard trace file."""
-    import torch
-    assert not hasattr(p_perf, "jax_profile")
-    with p_perf.torch_profile(str(tmp_path)):
-        torch.ones(8).sum()
-    assert [p.suffix for p in tmp_path.iterdir()] == [".json"]
