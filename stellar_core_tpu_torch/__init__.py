@@ -36,7 +36,10 @@ if _os.environ.get("STPU_NATIVE_SANITIZE") == "1":
 
     _nb.activate_sanitized()
 
-# Every pass of the cyclic collector is timed into `process.gc-pause`.
+# Every pass of the cyclic collector is timed into `process.gc-pause`, on
+# a young-generation threshold raised for the whole process.
+from .util import collector as _collector  # noqa: E402
 from .util import tracing as _tracing  # noqa: E402
 
 _tracing.install_gc_pause_timer()
+_collector.install_schedule()

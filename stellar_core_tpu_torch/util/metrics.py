@@ -35,10 +35,12 @@ METRIC_NAME_RE = re.compile(r"^[a-z0-9]+(\.[a-z0-9-]+)+$")
 
 # The port's own names, beyond the reference's list: spans and timers
 # where the benchmark's windows spend their host time (util/tracing), the
-# trace buffer's eviction count and the collector's pauses.
+# trace buffer's eviction count and the collector's pauses and full
+# passes.
 PORT_METRICS = frozenset({
     "tracing.spans-evicted",
     "process.gc-pause",
+    "process.gc-full",
     "herder.admission.flush-size",
     "herder.admission.flush-deadline",
     "herder.admission.flush-drain",
@@ -534,15 +536,18 @@ class MetricsRegistry:
             m.reset()
 
 
-# Made with each process registry, so that its writer only looks it up:
-# a gc callback (util.tracing) may run while its thread holds the
-# registry's lock, and cannot make a metric.
+# Made with each process registry, so that their writer only looks them
+# up: a gc callback (util.tracing) may run while its thread holds the
+# registry's lock, and cannot make a metric.  The collector's passes are
+# timed, its full (generation 2) passes counted.
 GC_PAUSE_TIMER = "process.gc-pause"
+GC_FULL_COUNTER = "process.gc-full"
 
 
 def _process_registry() -> MetricsRegistry:
     reg = MetricsRegistry()
     reg.timer(GC_PAUSE_TIMER)
+    reg.counter(GC_FULL_COUNTER)
     return reg
 
 

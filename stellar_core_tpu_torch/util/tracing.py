@@ -34,7 +34,7 @@ span with children of its own, is always kept, so a pass's closes survive
 when their `tx.apply` leaves do not.  Span overhead is far below the
 operations instrumented (ledger close, checkpoint download, bucket
 merge).  The process's collector pauses are timed too (`process.gc-pause`,
-install_gc_pause_timer).
+install_gc_pause_timer), its full passes counted (`process.gc-full`).
 """
 
 from __future__ import annotations
@@ -538,22 +538,28 @@ def spans_between(t0_ns: int, t1_ns: int,
 # ---------------------------------------------------------------------------
 
 GC_PAUSE_TIMER = _metrics.GC_PAUSE_TIMER
+GC_FULL_COUNTER = _metrics.GC_FULL_COUNTER
 _gc_t0: list = [None]
 
 
 def _gc_pause(phase: str, info: dict) -> None:
     """gc.callbacks entry: the seconds from a collection's start to its
-    stop into the GC_PAUSE_TIMER timer, which each process registry is
-    made with.  It takes no lock: a collection may start on a thread that
-    holds any of them, the registry's and the timer's own included.
-    Collections never overlap, so nothing else writes here."""
+    stop into the GC_PAUSE_TIMER timer and a pass of generation 2 into
+    the GC_FULL_COUNTER counter, both made with each process registry.  It
+    takes no lock: a collection may start on a thread that holds any of
+    them, the registry's and the timer's own included.  Collections never
+    overlap, so nothing else writes here."""
     if phase == "start":
         _gc_t0[0] = time.perf_counter()
         return
     t0, _gc_t0[0] = _gc_t0[0], None
-    timer = _metrics.registry().lookup(GC_PAUSE_TIMER)
+    reg = _metrics.registry()
+    timer = reg.lookup(GC_PAUSE_TIMER)
     if t0 is not None and timer is not None:
         timer.update_unlocked(time.perf_counter() - t0)
+    full = reg.lookup(GC_FULL_COUNTER)
+    if full is not None and info["generation"] == 2:
+        full.inc()
 
 
 def install_gc_pause_timer() -> None:

@@ -177,8 +177,12 @@ class BasicWork:
             self.on_failure_raise()
         elif state == State.ABORTED:
             self.on_aborted()
-        if self._notify_parent is not None:
-            self._notify_parent()
+        # dropped as it is called: the parent holds this work, so a kept
+        # callback would be a cycle that keeps a finished tree (and all it
+        # holds) alive until a full collector pass; start() sets it again
+        notify, self._notify_parent = self._notify_parent, None
+        if notify is not None:
+            notify()
 
     # -- status -----------------------------------------------------------
     @property

@@ -309,19 +309,24 @@ def test_a_cpu_timed_span_times_its_thread_cpu_not_its_waits(monkeypatch):
 
 
 def test_a_forced_collection_moves_the_gc_pause_timer():
+    """Two forced full passes: two more pauses timed, two more full
+    passes counted."""
     assert tracing._gc_pause in gc.callbacks
     t = metrics.registry().timer(tracing.GC_PAUSE_TIMER)
     before, total = t.count, t.total
+    full = counter(tracing.GC_FULL_COUNTER)
     gc.collect()
     gc.collect()
     assert t.count >= before + 2
     assert t.total > total
+    assert counter(tracing.GC_FULL_COUNTER) >= full + 2
 
 
 def test_the_gc_pause_timer_follows_a_registry_reset(monkeypatch):
     monkeypatch.setattr(metrics, "_registry", metrics.registry())
     metrics.reset_registry()
-    assert metrics.registry().names() == [tracing.GC_PAUSE_TIMER]
+    assert metrics.registry().names() == sorted(
+        [tracing.GC_PAUSE_TIMER, tracing.GC_FULL_COUNTER])
     gc.collect()
     assert metrics.registry().timer(tracing.GC_PAUSE_TIMER).count >= 1
 
