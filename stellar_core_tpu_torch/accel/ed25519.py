@@ -47,7 +47,7 @@ from .. import _cuda_build
 from ..device import Shards, parts, resolve_shards, upload
 from ..util import tracing
 from ..util.lockorder import make_lock
-from ..util.metrics import registry as _registry
+from ..util.metrics import HOT_NO_SLOT_COUNTER, registry as _registry
 from . import field, tables as _tables
 from .curve import D, P, PointBatch, SQRT_M1, _recover_x, double_scalarmult_w2, point_encode
 
@@ -275,7 +275,8 @@ class Ed25519BatchVerifier:
     signature by key temperature:
 
     * **table path** (tables.py, K-B + K-T): keys seen >= `hot_threshold`
-      times get a precomputed per-key window table on the device;
+      times get a precomputed per-key window table on the device (where
+      the slots run short, the most used first, ties by key bytes);
     * **generic path** (K-G): joint 2-bit-windowed double-scalarmult for
       cold keys.
 
@@ -343,7 +344,11 @@ class Ed25519BatchVerifier:
         returns them.  The host prep, up to the last launch enqueued, is
         the `accel.ed25519.prep` span (args n, hot, cold, cpu_s); its timer
         takes the prep's CPU seconds, since a worker thread's wall time
-        holds its waits for the GIL."""
+        holds its waits for the GIL.  Inside it, the key tables' install
+        (K-B's dispatch), where a slot is free or evictable, is the
+        `accel.ed25519.tables-install` span (args asked, built and
+        no_slot, in keys), and the signatures of hot keys that found no
+        slot count in `accel.ed25519.hot-no-slot`."""
         n = len(pks)
         if len(sigs) != n or len(msgs) != n:
             raise ValueError("pks, sigs and msgs differ in length")
@@ -414,16 +419,40 @@ class Ed25519BatchVerifier:
             pk = bytes(pks[i])
             if pk in tabs.slot_of or counts.get(pk, 0) >= self.hot_threshold:
                 hot_pks.add(pk)
-        to_install = [pk for pk in hot_pks if pk not in tabs.slot_of]
-        if to_install:
-            installed = tabs.install(
-                [(pk, cache[pk]) for pk in to_install], protect=hot_pks)
+        wanted = [pk for pk in hot_pks if pk not in tabs.slot_of]
+        # the slots free or held by a key this batch does not use
+        room = tabs.nslots - (len(hot_pks) - len(wanted))
+        no_slot = set(wanted) if room <= 0 else set()
+        if wanted and room > 0:
+            with tracing.timed_span("accel.ed25519.tables-install",
+                                    asked=len(wanted)):
+                to_install = wanted
+                if len(wanted) > room:
+                    # the most used keys get them, ties broken by the key
+                    # bytes: the use counts decide, not the set's order
+                    to_install = sorted(
+                        wanted, key=lambda pk: (-counts[pk], pk))[:room]
+                installed = tabs.install(
+                    [(pk, cache[pk]) for pk in to_install], protect=hot_pks)
+                no_slot = {pk for pk in wanted if pk not in installed}
+                tracing.annotate(built=len(installed), no_slot=len(no_slot))
             self.stats["tables_built"] += len(installed)
             _registry().counter("accel.ed25519.tables-built") \
                 .inc(len(installed))
-            hot_pks -= {pk for pk in to_install if pk not in installed}
-        hot_idx = [i for i in live if bytes(pks[i]) in hot_pks]
-        cold_idx = [i for i in live if bytes(pks[i]) not in hot_pks]
+        hot_pks -= no_slot
+        hot_idx, cold_idx, left_cold = [], [], 0
+        for i in live:
+            pk = bytes(pks[i])
+            if pk in hot_pks:
+                hot_idx.append(i)
+            else:
+                cold_idx.append(i)
+                left_cold += pk in no_slot
+        if left_cold:
+            # touched only when it moves, so that a registry of a test's
+            # own holds the reference's names where every key fits; the
+            # process registry makes it at 0
+            _registry().counter(HOT_NO_SLOT_COUNTER).inc(left_cold)
         self.stats["table_sigs"] += len(hot_idx)
         self.stats["generic_sigs"] += len(cold_idx)
         tracing.annotate(hot=len(hot_idx), cold=len(cold_idx))

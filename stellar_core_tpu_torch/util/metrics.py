@@ -35,8 +35,9 @@ METRIC_NAME_RE = re.compile(r"^[a-z0-9]+(\.[a-z0-9-]+)+$")
 
 # The port's own names, beyond the reference's list: spans and timers
 # where the benchmark's windows spend their host time (util/tracing), the
-# trace buffer's eviction count and the collector's pauses and full
-# passes.
+# trace buffer's eviction count, the collector's pauses and full passes,
+# and the verify entry's table installs and the signatures of hot keys
+# that found no table slot.
 PORT_METRICS = frozenset({
     "tracing.spans-evicted",
     "process.gc-pause",
@@ -47,6 +48,8 @@ PORT_METRICS = frozenset({
     "herder.admission.collect",
     "herder.admission.device-wait",
     "accel.ed25519.prep",
+    "accel.ed25519.tables-install",
+    "accel.ed25519.hot-no-slot",
     "catchup.bucket-apply",
 })
 
@@ -542,12 +545,17 @@ class MetricsRegistry:
 # timed, its full (generation 2) passes counted.
 GC_PAUSE_TIMER = "process.gc-pause"
 GC_FULL_COUNTER = "process.gc-full"
+# Made with each process registry too, so that it reads 0 (and not
+# absent) until the verifier's first hot key finds no table slot: the
+# signatures such keys sent to the generic kernel (accel/ed25519.py).
+HOT_NO_SLOT_COUNTER = "accel.ed25519.hot-no-slot"
 
 
 def _process_registry() -> MetricsRegistry:
     reg = MetricsRegistry()
     reg.timer(GC_PAUSE_TIMER)
     reg.counter(GC_FULL_COUNTER)
+    reg.counter(HOT_NO_SLOT_COUNTER)
     return reg
 
 

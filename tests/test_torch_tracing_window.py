@@ -326,7 +326,8 @@ def test_the_gc_pause_timer_follows_a_registry_reset(monkeypatch):
     monkeypatch.setattr(metrics, "_registry", metrics.registry())
     metrics.reset_registry()
     assert metrics.registry().names() == sorted(
-        [tracing.GC_PAUSE_TIMER, tracing.GC_FULL_COUNTER])
+        [tracing.GC_PAUSE_TIMER, tracing.GC_FULL_COUNTER,
+         metrics.HOT_NO_SLOT_COUNTER])
     gc.collect()
     assert metrics.registry().timer(tracing.GC_PAUSE_TIMER).count >= 1
 
