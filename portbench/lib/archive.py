@@ -1,7 +1,8 @@
 """The catchup configurations' input: a history archive made from the run's
 seed by the frozen reference, and what the reference's own closes of it
-give (each ledger's hash and each transaction's result), against which
-the replay is compared.
+give (each ledger's hash, each transaction's result, and every account's
+balance and sequence number after the replayed range), against which the
+replay is compared.
 
 Layout (a configuration file gives the numbers): ledger 2 carries the
 tx-set limit's upgrade to `max_tx_set_size` and the root account's one
@@ -96,8 +97,10 @@ def _plan(cfg: dict, seed: int, nid: bytes) -> tuple:
 def generate(cfg: dict, seed: int, out_dir: str) -> dict:
     """Write the archive for `seed` into out_dir/archive (emptied first)
     and return the reference: each ledger's hash and each transaction's
-    result code as the reference's closes give them, with the seconds
-    each stage took."""
+    result code as the reference's closes give them, every account's
+    balance and sequence number after the range's last ledger
+    (`accounts`, ledgers.account_state), with the seconds each stage
+    took."""
     t0 = time.perf_counter()
     archive_dir = os.path.join(out_dir, "archive")
     shutil.rmtree(archive_dir, ignore_errors=True)
@@ -140,6 +143,7 @@ def generate(cfg: dict, seed: int, out_dir: str) -> dict:
     fill_checkpoint()
     for block in payments:
         close(block)
+    accounts = L.account_state(mgr.root)
     fill_checkpoint()
     L.clear_verdicts()
     t_close = time.perf_counter()
@@ -154,7 +158,8 @@ def generate(cfg: dict, seed: int, out_dir: str) -> dict:
                              f"reference verifier's")
     first, last = replay_range(cfg)
     return {"archive": archive_dir, "passphrase": passphrase, "nid": nid,
-            "ledgers": ledgers, "replay": (first, last),
+            "ledgers": ledgers, "accounts": accounts,
+            "replay": (first, last),
             "transactions": n_tx, "signatures": len(verdicts),
             "corrupted": len(bad), "plan_s": t_plan - t0,
             "close_s": t_close - t_plan,

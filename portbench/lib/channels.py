@@ -137,8 +137,10 @@ def _plan(cfg: dict, seed: int, nid: bytes) -> tuple:
 def generate(cfg: dict, seed: int, out_dir: str) -> dict:
     """Write the archive for `seed` into out_dir/archive (emptied first)
     and return the reference: each ledger's hash and each transaction's
-    result code as the reference's closes give them, with the seconds
-    each stage took, and the hashes of the service transactions whose
+    result code as the reference's closes give them, every account's
+    balance and sequence number after the range's last ledger
+    (`accounts`, ledgers.account_state), with the seconds each stage
+    took, and the hashes of the service transactions whose
     channel's (bad_channel_txs) and whose base account's (bad_base_txs)
     signature was corrupted."""
     t0 = time.perf_counter()
@@ -183,6 +185,7 @@ def generate(cfg: dict, seed: int, out_dir: str) -> dict:
     fill_checkpoint()
     for block in payments:
         close(block)
+    accounts = L.account_state(mgr.root)
     fill_checkpoint()
     L.clear_verdicts()
     t_close = time.perf_counter()
@@ -197,7 +200,8 @@ def generate(cfg: dict, seed: int, out_dir: str) -> dict:
                              f"reference verifier's")
     first, last = replay_range(cfg)
     return {"archive": archive_dir, "passphrase": passphrase, "nid": nid,
-            "ledgers": ledgers, "replay": (first, last),
+            "ledgers": ledgers, "accounts": accounts,
+            "replay": (first, last),
             "transactions": n_tx, "signatures": len(verdicts),
             "corrupted": len(bad), "bad_channel_txs": bad_signer[0],
             "bad_base_txs": bad_signer[1], "plan_s": t_plan - t0,

@@ -9,8 +9,10 @@ the port where its answer is produced and restores it on exit.
   flipped.
 - half_left_out: the second half of every batch the card is given is not
   verified; its verdicts read valid.
-- state_unchanged: every fourth ledger close applies no transaction: the
-  state it leaves is the state it found, but for the header.
+- state_unchanged: every fourth ledger applies no transaction: the state
+  it leaves is the state it found, but for the header.  On the Python
+  path its close is given no transaction; where the native engine
+  applies the checkpoint, the ledger's transaction record is taken out.
 """
 
 from __future__ import annotations
@@ -84,15 +86,28 @@ def half_left_out():
     return _patched(ed25519, "verify_batch_async", verify_batch_async)
 
 
+@contextlib.contextmanager
 def state_unchanged():
     from stellar_core_tpu_torch.ledger.manager import LedgerManager
-    orig = LedgerManager.close_ledger
+    from stellar_core_tpu_torch.ledger.native_apply import NativeApplyBridge
+    close = LedgerManager.close_ledger
+    apply = NativeApplyBridge.apply_checkpoint
 
     def close_ledger(mgr, frames, *args, **kw):
         if (mgr.lcl_header.ledgerSeq + 1) % 4 == 0:
             frames = []
-        return orig(mgr, frames, *args, **kw)
-    return _patched(LedgerManager, "close_ledger", close_ledger)
+        return close(mgr, frames, *args, **kw)
+
+    def apply_checkpoint(bridge, header_recs, tx_recs, max_seq):
+        # a ledger's transaction record starts with its sequence number
+        tx_recs = [None if r is not None
+                   and int.from_bytes(r[:4], "big") % 4 == 0 else r
+                   for r in tx_recs]
+        return apply(bridge, header_recs, tx_recs, max_seq)
+
+    with _patched(LedgerManager, "close_ledger", close_ledger), \
+            _patched(NativeApplyBridge, "apply_checkpoint", apply_checkpoint):
+        yield
 
 
 def plant(name: str):

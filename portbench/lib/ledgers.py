@@ -4,6 +4,8 @@ comparisons that decide `correct`."""
 
 from __future__ import annotations
 
+import numpy as np
+
 from ..refcore import xdr as X
 from ..refcore.crypto import keys as rkeys
 from ..refcore.crypto.sha import sha256
@@ -95,6 +97,34 @@ def result_codes(arts) -> dict:
     return {p.transactionHash: p.result.result.switch.name
             for p in arts.result_entry.txResultSet.results}
 
+
+def account_state(root) -> tuple:
+    """(keys, balances, sequence numbers) of every account in a ledger
+    root, in key order: the state each transaction's verdict decides
+    (a success moves both, txBAD_AUTH and txFAILED the fee and the
+    sequence number alone)."""
+    keys, bal, seq = [], [], []
+    for kb in sorted(root.all_keys()):
+        e = root.get_entry(kb)
+        if e.data.switch == X.LedgerEntryType.ACCOUNT:
+            keys.append(kb)
+            bal.append(e.data.value.balance)
+            seq.append(e.data.value.seqNum)
+    return keys, np.array(bal, np.int64), np.array(seq, np.int64)
+
+
+def read_accounts(root, keys) -> tuple:
+    """(balances, sequence numbers) of the accounts `keys` in a ledger
+    root, -1 for an account it lacks."""
+    bal = np.full(len(keys), -1, np.int64)
+    seq = np.full(len(keys), -1, np.int64)
+    get = root.get_entry
+    for i, kb in enumerate(keys):
+        e = get(kb)
+        if e is not None:
+            bal[i] = e.data.value.balance
+            seq[i] = e.data.value.seqNum
+    return bal, seq
 
 
 def account_key(pk: bytes) -> bytes:

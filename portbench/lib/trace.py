@@ -98,3 +98,36 @@ def idle_gaps(ops, t0_ns: int, t1_ns: int, spans, other: str,
         at = max(at, e)
     return [[n, ns / 1e9] for n, ns in
             sorted(by.items(), key=lambda kv: -kv[1])[:top] if ns > 0]
+
+
+def innermost(levels) -> list:
+    """Flatten lists of (start_ns, end_ns, name) host spans, given
+    innermost first, into intervals none of which overlap, as idle_gaps
+    takes them: each span keeps only the part that no span before it (of
+    its own list or an inner one) covers."""
+    covered, out = [], []
+    for spans in levels:
+        for s, e, name in sorted(spans):
+            at = s
+            for a, b in covered:
+                if b <= at:
+                    continue
+                if a >= e:
+                    break
+                if a > at:
+                    out.append((at, a, name))
+                at = max(at, b)
+            if at < e:
+                out.append((at, e, name))
+            covered = _merged(covered + [(s, e)])
+    return sorted(out)
+
+
+def _merged(intervals) -> list:
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out

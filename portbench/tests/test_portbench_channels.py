@@ -1,7 +1,10 @@
-"""The catchup-channels cell at a tiny size on the CPU: a sound run is
-correct, its table metrics read, and each fault the cell can have makes it
-not correct."""
+"""The catchup-channels cell at a tiny size on the CPU, on both of the
+port's apply paths (its Python close, and the native engine where it
+loads): a 5 s window of whole passes closes, a sound run is correct, its
+table metrics read, and each fault the cell can have makes it not
+correct."""
 
+import contextlib
 import copy
 import json
 
@@ -12,8 +15,10 @@ from portbench.runners import catchup_channels
 
 from . import tiny
 
+PATHS = [pytest.param(False, id="python"), pytest.param(True, id="native")]
 
-def _tiny_cell() -> dict:
+
+def _tiny_cell(native: bool = False) -> dict:
     # tiny.cell cuts only the configurations whose runner is `catchup`
     bench = json.loads((tiny.BENCH.parent / "BENCHMARK.json").read_text())
     cell = harness.find_cell(bench, "catchup-channels")
@@ -21,17 +26,12 @@ def _tiny_cell() -> dict:
     cfg["archive"].update(accounts=200, services=2, channels_per_service=6,
                           txs_per_ledger=24, payment_ledgers=4,
                           corrupt_every=7)
-    # the Python close even where another test of this process has loaded
-    # the native engine: STELLAR_TPU_NO_CAPPLY acts only at its load
-    cfg["catchup"]["native"] = False
+    cfg["catchup"]["native"] = native
     return dict(cell, config=cfg)
 
 
 @pytest.fixture(autouse=True)
-def _python_close(monkeypatch):
-    # the card's machine has no libsodium, so the port's replay closes on
-    # its Python path there; hold this machine to the same path
-    monkeypatch.setenv("STELLAR_TPU_NO_CAPPLY", "1")
+def _plain_kernels(monkeypatch):
     from stellar_core_tpu_torch.catchup.catchup import PreverifyPipeline
     monkeypatch.setattr(PreverifyPipeline, "DEFAULT_DEVICE", "cpu")
     # each run starts from verifiers with no use counts and no tables, as
@@ -42,39 +42,44 @@ def _python_close(monkeypatch):
     monkeypatch.setattr(ed25519, "_verifiers", {})
 
 
-def _run(tmp_path, fault=None, seconds=12.0):
-    c = catchup_channels.Cell(_tiny_cell(), 2 ** 31 + 77, seconds, False,
-                              device="cpu", workdir=tmp_path / "work")
+def _run(tmp_path, native, fault=None, seconds=5.0):
+    tiny.engine_or_skip(native)
+    c = catchup_channels.Cell(_tiny_cell(native), 2 ** 31 + 77, seconds,
+                              False, device="cpu",
+                              workdir=tmp_path / "work")
     c.setup()
-    if fault is None:
-        w = c.run()
-    else:
-        with faults.plant(fault):
-            w = c.run()
+    with faults.plant(fault) if fault else contextlib.nullcontext():
+        w = tiny.within(c.run)
     c.release()
-    return w, c.check()
+    return c, w, c.check()
 
 
-def test_sound_run_is_correct_and_its_metrics_read(tmp_path):
-    w, v = _run(tmp_path)
+@pytest.mark.parametrize("native", PATHS)
+def test_sound_run_is_correct_and_its_metrics_read(tmp_path, native):
+    c, w, v = _run(tmp_path, native)
     assert v["correct"], v
-    assert v["attempted"] >= 4
+    st = w["stats"]
+    assert st["window_s"] >= 5.0
+    assert st["ledgers_in_window"] == st["passes"] * (c.last - c.first + 1)
     assert w["end_to_end"]["replay_ledgers_per_s"] > 0
+    assert st["native_checkpoints"] == (st["passes"] if native else 0)
     reg = w["registry"]
     assert reg["accel.ed25519.table-sigs"] > 0
     assert reg.get("crypto.verify.recompute", 0) == 0
-    ctx = harness.Context(reg, None, w["stats"])
+    ctx = harness.Context(reg, None, st)
     layer = {m["name"]: m for m in _tiny_cell()["per_layer"]}
     got = harness.read_metrics(list(layer.values()), ctx)
     # untraced: the device metrics read None; the counters' read
     assert 0 < got["accel.table_sig_pct.channels"]["value"] < 100
     assert got["catchup.cpu_verify_pct.channels"]["value"] == 0
-    assert got["ledger.close_ms.channels"]["value"] > 0
     assert "accel.hot_no_slot_pct.channels" in got
     for name in ("verify.prep_ms_per_ksig.channels",
                  "catchup.collect_wait_ms.channels",
-                 "catchup.bucket_apply_ms.channels"):
+                 "catchup.bucket_apply_ms.channels",
+                 "catchup.apply_ms_per_ledger.channels"):
         assert got[name]["value"] > 0, name
+    # the Python close's timer reads only where the Python path closes
+    assert ("ledger.close_ms.channels" in got) is not native
     assert got["host.gc_full_passes.channels"]["value"] >= 0
     assert not {"kernel.tables_roofline_pct.channels",
                 "kernel.generic_roofline_pct.channels",
@@ -91,7 +96,18 @@ def test_a_program_without_the_new_counter_reads_none():
     assert read(ctx) == 0.0
 
 
+def test_the_engines_own_verifies_count_as_the_cpus():
+    read = harness.metric_reader("catchup.cpu_verify_pct.channels")
+    ctx = harness.Context({"crypto.verify.recompute": 1,
+                           "crypto.verify.cache-hit": 3}, None,
+                          {"native_verify_cache_misses": 2,
+                           "native_verify_cache_hits": 4})
+    assert read(ctx) == 30.0
+    assert read(harness.Context({}, None, {})) is None
+
+
+@pytest.mark.parametrize("native", PATHS)
 @pytest.mark.parametrize("fault", faults.FAULTS)
-def test_fault_is_caught(tmp_path, fault):
-    _, v = _run(tmp_path, fault)
+def test_fault_is_caught(tmp_path, native, fault):
+    _, _, v = _run(tmp_path, native, fault)
     assert not v["correct"], v

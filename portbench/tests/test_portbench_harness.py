@@ -25,6 +25,20 @@ def test_union_and_gaps():
     assert gaps == [["b", 35e-9], ["o", 32e-9], ["a", 3e-9]]
 
 
+def test_innermost_spans_take_the_gap():
+    # a close inside a checkpoint apply, inside a window with a bucket
+    # apply before it: each interval keeps what no inner span covers
+    levels = [[(30, 40, "close"), (50, 60, "close")],
+              [(20, 70, "apply")],
+              [(0, 10, "buckets")]]
+    assert tr.innermost(levels) == [
+        (0, 10, "buckets"), (20, 30, "apply"), (30, 40, "close"),
+        (40, 50, "apply"), (50, 60, "close"), (60, 70, "apply")]
+    gaps = tr.idle_gaps([], 0, 100, tr.innermost(levels), "o")
+    assert gaps == [["o", 40e-9], ["apply", 30e-9], ["close", 20e-9],
+                    ["buckets", 10e-9]]
+
+
 class _Trace:
     def __init__(self, ops, window_s):
         self.ops, self.window_s = ops, window_s
